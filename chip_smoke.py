@@ -1,0 +1,310 @@
+"""GPU smoke run of pynama_tpu_torch: build the kernel, check it, drive the
+main path at full size.
+
+    python3 chip_smoke.py
+
+Needs one CUDA GPU (an H100: the kernel is built for sm_90a) and nvcc; it
+builds `pynama_tpu_torch/csrc/` into `pynama_tpu_torch/_build/` on first
+use. Phases, each printing its own line; any failure raises and the script
+exits non-zero without the final result line:
+
+1. device   the card, its power limit, torch and CUDA versions
+2. build    nvcc build of the kernel library (seconds, ptxas register use)
+3. kernels  fused_apply's CUDA kernel against its plain PyTorch version on
+            the card, at every operator shape of the engine (3D ngl=4 24^3,
+            3D ngl=7 8^3, 2D ngl=3 50x50, degenerate extents), float32 and
+            float64: max|err|/max|ref| <= 1e-5 (f32) / 1e-12 (f64), and every
+            duplicated slot bitwise equal; kernel and plain times (CUDA
+            events, median) at the 24^3 ngl=4 shapes
+4. parity   a small 3D cavity (ngl=3, 3^3, f64): one rhs_local and a
+            3-step transient on the GPU (kernel) against the CPU (plain
+            version), relative error <= 1e-9, same accepted steps
+5. main     the flagship no-slip 3D lid-driven cavity (24^3 elements,
+            ngl=4, float32, CG rtol 1e-6): Problem.setUp() and 2 accepted
+            adaptive steps through start_solver(); prints setup phases,
+            seconds per step, CG iterations per solve, kernel launches (which
+            must account for every operator application) and peak memory
+
+The last two lines are the kernel record as JSON and the result line
+{"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+F32_LIMIT = 1e-5     # max|err|/max|ref|, float32 (tests/test_fused.py)
+F64_LIMIT = 1e-12
+PARITY_LIMIT = 1e-9
+
+# (label, nelem, ngl, [(ncomp_in, ncomp_out), ...]) — every (nnc_in,
+# nnc_out) pair the engine applies: K v->v, Rw w->v, curl v->w, srt v->s,
+# div s->v
+SHAPES = [
+    ("3d-ngl4-24^3", (24, 24, 24), 4, [(3, 3), (3, 6), (6, 3)]),
+    ("3d-ngl7-8^3", (8, 8, 8), 7, [(3, 3), (3, 6), (6, 3)]),
+    ("2d-ngl3-50^2", (50, 50), 3, [(2, 2), (1, 2), (2, 1), (2, 3), (3, 2)]),
+    ("3d-ngl3-1x2x2", (1, 2, 2), 3, [(3, 1)]),
+    ("3d-ngl4-4x1x2", (4, 1, 2), 4, [(3, 3)]),
+    ("3d-ngl2-2^3", (2, 2, 2), 2, [(3, 3)]),
+]
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        raise RuntimeError(msg)
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def cavity_config(nelem, ngl, rho, mu, lid, max_steps, end_time):
+    zero = [0] * len(nelem)
+    sides = ("up", "down", "left", "right", "back", "front")
+    return {
+        "name": "cavity3d",
+        "material-properties": {"rho": rho, "mu": mu},
+        "domain": {"ngl": ngl, "box-mesh": {
+            "nelem": list(nelem), "lower": zero, "upper": [1] * len(nelem)}},
+        "time-solver": {"start-time": 0, "end-time": end_time,
+                        "max-steps": max_steps},
+        "boundary-conditions": {"no-slip": {
+            s: (lid if s == "up" else zero) for s in sides}},
+        "initial-conditions": {"vorticity": [0, 0, 0]},
+    }
+
+
+def phase_device(torch):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    card = smi.stdout.strip().splitlines()[0]
+    emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=card,
+         torch=torch.__version__, cuda=torch.version.cuda,
+         count=torch.cuda.device_count())
+    return card
+
+
+def phase_build():
+    from pynama_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    _build.load_library()
+    regs = [ln.strip() for ln in _build.last_build_log.splitlines()
+            if "registers" in ln]
+    emit("build", seconds=time.perf_counter() - t0,
+         nvcc_seconds=_build.last_build_seconds, ptxas=regs)
+
+
+def _dup_spread(torch, y, cell_nodes, ncomp):
+    """max over global dofs of (max - min) over the dof's slots."""
+    cn = torch.as_tensor(cell_nodes.ravel(), device=y.device,
+                         dtype=torch.int64)
+    gid = (cn.repeat_interleave(ncomp) * ncomp
+           + torch.arange(ncomp, device=y.device).repeat(cn.numel()))
+    n = int(cn.max()) * ncomp + ncomp
+    flat = y.reshape(-1)
+    hi = torch.full((n,), -float("inf"), dtype=y.dtype, device=y.device)
+    lo = torch.full((n,), float("inf"), dtype=y.dtype, device=y.device)
+    hi = hi.scatter_reduce(0, gid, flat, "amax")
+    lo = lo.scatter_reduce(0, gid, flat, "amin")
+    return float((hi - lo).max())
+
+
+def _median_ms(torch, fn, reps=30, warmup=3):
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def phase_kernels(torch, dev):
+    from pynama_tpu_torch.mesh import BoxMesh
+    from pynama_tpu_torch.ops.fused import fused_apply, fused_apply_ref
+
+    record = None
+    seed = 0
+    for label, nelem, ngl, pairs in SHAPES:
+        dim = len(nelem)
+        nn = ngl ** dim
+        E = int(np.prod(nelem))
+        mesh = BoxMesh.create(ngl, nelem, [0] * dim, [1] * dim)
+        for dtype, limit in ((torch.float32, F32_LIMIT),
+                             (torch.float64, F64_LIMIT)):
+            for cin, cout in pairs:
+                seed += 1
+                rng = np.random.default_rng(seed)
+                t = torch.as_tensor(rng.standard_normal((E, nn * cin)),
+                                    dtype=dtype, device=dev)
+                m = torch.as_tensor(
+                    rng.standard_normal((nn * cin, nn * cout)),
+                    dtype=dtype, device=dev)
+                y, bnd = fused_apply(t, m, nelem, ngl, cout)
+                yr, br = fused_apply_ref(t, m, nelem, ngl, cout)
+                torch.cuda.synchronize()
+                scale = float(yr.abs().max())
+                err_y = float((y - yr).abs().max())
+                err_b = float((bnd - br).abs().max())
+                spread = _dup_spread(torch, y, mesh.cell_nodes, cout)
+                rel = max(err_y, err_b) / scale
+                row = dict(shape=label, dtype=str(dtype).split(".")[-1],
+                           nnc_in=nn * cin, nnc_out=nn * cout,
+                           max_abs_err=err_y, bnd_abs_err=err_b,
+                           rel_err=rel, limit=limit, dup_spread=spread)
+                if label == "3d-ngl4-24^3":
+                    # interleaved: plain, kernel, kernel, plain
+                    p1 = _median_ms(torch, lambda: fused_apply_ref(
+                        t, m, nelem, ngl, cout))
+                    k1 = _median_ms(torch, lambda: fused_apply(
+                        t, m, nelem, ngl, cout))
+                    k2 = _median_ms(torch, lambda: fused_apply(
+                        t, m, nelem, ngl, cout))
+                    p2 = _median_ms(torch, lambda: fused_apply_ref(
+                        t, m, nelem, ngl, cout))
+                    row.update(ms=min(k1, k2), plain_ms=min(p1, p2),
+                               ms_runs=[k1, k2], plain_ms_runs=[p1, p2])
+                    if dtype == torch.float32 and (cin, cout) == (3, 3):
+                        record = row
+                emit("kernels", **row)
+                check(rel <= limit, f"fused_apply {label} {row['dtype']} "
+                      f"{nn * cin}->{nn * cout}: rel err {rel:.3e} > {limit}")
+                check(spread == 0.0, f"fused_apply {label} {row['dtype']}: "
+                      f"duplicate slots differ by {spread:.3e}")
+    return record
+
+
+def phase_parity(torch, dev):
+    from pynama_tpu_torch.cases import Problem
+    from pynama_tpu_torch.engine.local_engine import rhs_local
+
+    cfg = cavity_config((3, 3, 3), 3, 1.0, 0.02, [1.0, 0, 0], 3, 1.0)
+    opts = dict(solver="cg", cg_rtol=1e-13, cg_maxiter=4000)
+    out = {}
+    for name, device in (("gpu", dev), ("cpu", torch.device("cpu"))):
+        p = Problem(cfg, device=device, dtype=torch.float64, **opts)
+        p.setUp()
+        rng = np.random.default_rng(0)
+        vort = p.to_local(rng.standard_normal((p.mesh.n_nodes, 3)))
+        vel = torch.zeros((p.mesh.n_cells, p.mesh.nnode_el * 3),
+                          dtype=torch.float64, device=device)
+        f, _ = rhs_local(p.engine_ops, 0.0, vort, vel)
+        t_end, steps = p.start_solver(atol=1e-8, rtol=1e-8, dt0=1e-3)
+        out[name] = dict(f=f.cpu().numpy(), vort=p.vort.cpu().numpy(),
+                         vel=p.vel.cpu().numpy(), t=t_end, steps=steps)
+    rel = {k: float(np.abs(out["gpu"][k] - out["cpu"][k]).max()
+                    / np.abs(out["cpu"][k]).max())
+           for k in ("f", "vort", "vel")}
+    emit("parity", rel_err=rel, limit=PARITY_LIMIT,
+         steps_gpu=out["gpu"]["steps"], steps_cpu=out["cpu"]["steps"],
+         t_gpu=out["gpu"]["t"], t_cpu=out["cpu"]["t"])
+    check(out["gpu"]["steps"] == out["cpu"]["steps"] == 3,
+          f"accepted steps gpu {out['gpu']['steps']} cpu "
+          f"{out['cpu']['steps']} (want 3)")
+    check(all(v <= PARITY_LIMIT for v in rel.values()),
+          f"GPU vs CPU relative error {rel} > {PARITY_LIMIT}")
+
+
+def phase_main(torch, dev):
+    from pynama_tpu_torch.cases import Problem
+    from pynama_tpu_torch.ops.fused import fused_apply
+
+    # bench.py's flagship: 3D no-slip lid-driven cavity, 24^3 ngl=4, f32
+    cfg = cavity_config((24, 24, 24), 4, 0.5, 0.01, [2, 0, 0], 2, 1.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fused_apply.launches = 0
+    p = Problem(cfg, device=dev, dtype=torch.float32, solver="cg",
+                cg_rtol=1e-6, cg_maxiter=1000)
+    t0 = time.perf_counter()
+    p.setUp()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    p.cg_log = []
+    t0 = time.perf_counter()
+    t_end, steps = p.start_solver(dt0=1e-3)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = fused_apply.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    iters = [int(it) for it, _ in p.cg_log]
+    applies = [n for _, n in p.cg_log]
+    n_rhs = len(p.cg_log) // 2
+    # per rhs_local: Rw, apply_K(vc), A0 residual per stage (2 stages),
+    # curl between the stages, then srt, div_srt, curl -> 10; plus every
+    # operator application of the CG loops
+    expected = 10 * n_rhs + sum(applies)
+    ops = p.engine_ops
+    vel_l = p.to_local(p.vel)
+    ke = 0.5 * p.rho * float((vel_l * vel_l * ops.lay_v.inv_mult
+                              / ops.winv_v).sum())
+    vort, vel = p.vort, p.vel
+    finite = bool(torch.isfinite(vort).all()) and bool(
+        torch.isfinite(vel).all())
+    emit("main", config="cavity3d 24^3 ngl=4 f32 cg_rtol=1e-6",
+         n_nodes=p.mesh.n_nodes, velocity_dofs=p.mesh.n_nodes * 3,
+         setup_s=setup_s, setup_phases_s=p.setup_phases,
+         accepted_steps=steps, attempts=n_rhs // 8, t_end=t_end,
+         run_s=run_s, s_per_step=run_s / max(steps, 1), rhs_evals=n_rhs,
+         cg_iters_fs_main=[iters[i:i + 2] for i in range(0, len(iters), 2)],
+         cg_loop_applies=sum(applies), fused_apply_launches=launches,
+         expected_launches=expected, peak_mem_bytes=peak,
+         kinetic_energy=ke, finite=finite)
+    check(steps == 2, f"accepted {steps} steps, want 2")
+    check(finite, "non-finite vort/vel")
+    check(ke > 0.0, f"kinetic energy {ke} <= 0")
+    check(len(p.cg_log) == 2 * n_rhs and n_rhs >= 16,
+          f"{len(p.cg_log)} CG solves for {n_rhs} right-hand sides")
+    check(launches > 0 and launches == expected,
+          f"fused_apply launched {launches} times, the path made "
+          f"{expected} operator applications")
+    check(all(n >= it for it, n in zip(iters, applies)),
+          "CG made fewer operator applications than iterations")
+    return launches
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "run needs a CUDA GPU", file=sys.stderr)
+        return 1
+    import pynama_tpu_torch  # noqa: F401 -- fail before printing anything
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+
+    card = phase_device(torch)
+    phase_build()
+    record = phase_kernels(torch, dev)
+    phase_parity(torch, dev)
+    launches = phase_main(torch, dev)
+
+    print(card)
+    print(json.dumps({"kernels": [{
+        "name": "fused_apply", "route": "cuda",
+        "source": "pynama_tpu_torch/csrc/fused_apply.cu",
+        "replaces": "pynama_tpu/ops/fused.py:180",
+        "launches": launches, "max_abs_err": record["max_abs_err"],
+        "ms": record["ms"], "plain_ms": record["plain_ms"]}]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

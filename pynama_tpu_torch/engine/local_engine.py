@@ -1,0 +1,406 @@
+"""Execution engine: the whole KLE/RHS pipeline in element-local layout.
+
+Port of pynama_tpu/engine/local_engine.py for box meshes. All state lives
+in the local vector layout of `ops/local.py` — (E, nnode_el*ncomp) — and
+`EngineOps`, a frozen dataclass of tensors, carries everything the step
+functions need.
+
+Pipeline per RHS evaluation (reference evalRHS):
+
+    BC write  : dense-mask merge with a constant value buffer
+    KLE solve : matrix-free PCG on DSS(x @ K^T) with a Jacobi preconditioner
+    operators : curl/SrT/DivSrT as DSS(x @ matT) + winv scaling
+    v (x) v   : component extraction/packing via column gathers
+
+Every operator application is `_apply_mat`, y = DSS(t @ matT), and always
+runs through `ops/fused.py::fused_apply`: the hand-written CUDA kernel on a
+GPU, its plain PyTorch version on the CPU.
+
+Correctness relies on every field staying *consistent* (duplicated interface
+slots equal): DSS assembles, masks and pointwise scalings are per-node, CG
+combines consistent vectors linearly.
+
+The boundary-condition semantics mirror the reference: velocity/vorticity
+values are written on all components of every boundary node before each
+solve; tangential values are re-imposed on no-slip walls after the
+free-slip stage.
+
+Left out until their ROADMAP items: analytic-function BC sides (item 5),
+the FDM and Schwarz preconditioners and GMRES (items 9-10), sum
+factorization (item 12) and sharding (item 14).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from pynama_tpu_torch.ops import local as L
+from pynama_tpu_torch.ops.fused import fused_apply
+from pynama_tpu_torch.solver.cg import pcg
+
+
+# ---------------------------------------------------------------------------
+# operator bundle
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class EngineOps:
+    """Everything the step functions need."""
+    # element matrices, transposed (x_local @ matT)
+    KT: torch.Tensor              # (nncv, nncv)
+    RwT: torch.Tensor             # (nncw, nncv)
+    curlT: torch.Tensor           # (nncv, nncw)
+    srtT: torch.Tensor            # (nncv, nncs)
+    divT: torch.Tensor            # (nncs, nncv)
+    # layouts (DSS perms + slot weights) per component family
+    lay_v: L.LocalLayout
+    lay_w: L.LocalLayout
+    lay_s: L.LocalLayout
+    # reciprocal lumped weights expanded per family, (E, nnc)
+    winv_v: torch.Tensor
+    winv_w: torch.Tensor
+    winv_s: torch.Tensor
+    # masked-system data (E, nncv)
+    free_main: torch.Tensor
+    free_fs: torch.Tensor
+    diag: torch.Tensor
+    # BC dense masks and constant-value buffers
+    mask_vel: torch.Tensor        # (E, nncv) 1.0 where velocity is imposed
+    mask_vort: torch.Tensor       # (E, nncw)
+    mask_tang: torch.Tensor       # (E, nncv) no-slip tangential components
+    const_vel: torch.Tensor       # (E, nncv) constant boundary velocity
+    const_vort: torch.Tensor      # (E, nncw)
+    #: tangential values merged per component in side order (wall edges
+    #: and corners get different component subsets from two sides)
+    const_tang: torch.Tensor      # (E, nncv)
+    # v (x) v component shuffles
+    P_v2cm: torch.Tensor          # (dim*nn,) interleaved -> comp-major
+    P_cm2s: torch.Tensor          # (nncs,) comp-major -> interleaved
+    rho: float
+    mu: float
+    nu: float
+    ngl: int
+    nelem: tuple
+    dim: int
+    dim_w: int
+    dim_s: int
+    is_ns: bool
+    cg_rtol: float
+    cg_atol: float
+    cg_maxiter: int
+
+    @property
+    def nn(self):
+        return self.ngl ** self.dim
+
+
+#: the array fields of EngineOps, by dotted path, as `ops_from_numpy` takes
+#: them (layout perms as one (dim, nnc) integer array)
+ARRAY_FIELDS = (
+    "KT", "RwT", "curlT", "srtT", "divT",
+    "lay_v.inv_mult", "lay_v.perms", "lay_w.inv_mult", "lay_w.perms",
+    "lay_s.inv_mult", "lay_s.perms",
+    "winv_v", "winv_w", "winv_s", "free_main", "free_fs", "diag",
+    "mask_vel", "mask_vort", "mask_tang", "const_vel", "const_vort",
+    "const_tang", "P_v2cm", "P_cm2s", "rho", "mu", "nu",
+)
+
+
+# ---------------------------------------------------------------------------
+# build
+# ---------------------------------------------------------------------------
+
+def _comp_perm_idx(nn: int, ncomp: int) -> np.ndarray:
+    """Gather index: interleaved -> component-major, t_cm = t[:, idx]."""
+    dst = np.arange(ncomp * nn)
+    comp = dst // nn
+    node = dst % nn
+    return node * ncomp + comp
+
+
+def _comp_unperm_idx(nn: int, ncomp: int) -> np.ndarray:
+    """Gather index: component-major -> interleaved, t = t_cm[:, idx]."""
+    dst = np.arange(nn * ncomp)
+    node = dst // ncomp
+    comp = dst % ncomp
+    return comp * nn + node
+
+
+def _vtensv_pairs(dim: int):
+    """Strain-slot component pairs (reference computeVtensV)."""
+    if dim == 2:
+        return [(0, 0), (0, 1), (1, 1)]
+    return [(0, 0), (0, 1), (1, 1), (1, 2), (2, 2), (2, 0)]
+
+
+def _engine_arrays(mesh, bc, em_K, em_Rw, op_curl, op_srt, op_div,
+                   op_weight, rho, mu) -> dict:
+    """The numpy arrays of an EngineOps (keys: ARRAY_FIELDS), float64."""
+    dim, dim_w, dim_s = mesh.dim, mesh.dim_w, mesh.dim_s
+    nn = mesh.nnode_el
+    E = mesh.n_cells
+    cell_nodes = np.asarray(mesh.cell_nodes)
+    counts = np.bincount(cell_nodes.ravel(), minlength=mesh.n_nodes)
+    inv = 1.0 / counts[cell_nodes]
+    out = {}
+    for fam, c in (("v", dim), ("w", dim_w), ("s", dim_s)):
+        out[f"lay_{fam}.inv_mult"] = np.repeat(inv, c, axis=1)
+        out[f"lay_{fam}.perms"] = np.stack(L.perm_arrays(mesh.ngl, dim, c))
+
+    # lumped weights: assemble (DSS of tiled element weights), then 1/w per
+    # node, expanded per family
+    wtile = np.broadcast_to(np.asarray(op_weight, dtype=np.float64),
+                            (E, nn)).copy()
+    winv = 1.0 / L.dss_np(mesh, wtile, 1)                  # (E, nn)
+    for fam, c in (("v", dim), ("w", dim_w), ("s", dim_s)):
+        out[f"winv_{fam}"] = np.repeat(winv, c, axis=1)
+
+    out["free_main"] = L.to_local(mesh, bc.free_main.astype(np.float64))
+    out["free_fs"] = L.to_local(mesh, bc.free_fs.astype(np.float64))
+    K_np = np.asarray(em_K)
+    de = np.tile(np.diagonal(K_np)[None, :], (E, 1))
+    out["diag"] = L.dss_np(mesh, de, dim)
+
+    # BC masks + constant values (dense, merged in side order)
+    n_nodes = mesh.n_nodes
+    mvel = np.zeros((n_nodes, dim))
+    mvort = np.zeros((n_nodes, dim_w))
+    mtang = np.zeros((n_nodes, dim))
+    cvel = np.zeros((n_nodes, dim))
+    cvort = np.zeros((n_nodes, dim_w))
+    ctang = np.zeros((n_nodes, dim))
+    for s in bc.sides:
+        mvel[s.nodes, :] = 1.0
+        mvort[s.nodes, :] = 1.0
+        if s.kind == "no-slip":
+            for d in range(dim):
+                if d != s.normal_axis:
+                    mtang[s.nodes, d] = 1.0
+                    ctang[s.nodes, d] = s.velocity[d]
+        cvel[s.nodes, :] = s.velocity
+        cvort[s.nodes, :] = s.vorticity
+    for key, a in (("mask_vel", mvel), ("mask_vort", mvort),
+                   ("mask_tang", mtang), ("const_vel", cvel),
+                   ("const_vort", cvort), ("const_tang", ctang)):
+        out[key] = L.to_local(mesh, a)
+
+    tr = lambda a: np.ascontiguousarray(np.asarray(a).T)
+    out.update(KT=tr(K_np), RwT=tr(em_Rw), curlT=tr(op_curl),
+               srtT=tr(op_srt), divT=tr(op_div),
+               P_v2cm=_comp_perm_idx(nn, dim),
+               P_cm2s=_comp_unperm_idx(nn, dim_s),
+               rho=np.asarray(rho, dtype=np.float64),
+               mu=np.asarray(mu, dtype=np.float64),
+               nu=np.asarray(mu / rho, dtype=np.float64))
+    return out
+
+
+def ops_from_numpy(arrays: dict, *, ngl, nelem, dim, dim_w, dim_s, is_ns,
+                   cg_rtol, cg_atol, cg_maxiter, device,
+                   dtype) -> EngineOps:
+    """EngineOps from numpy arrays keyed by ARRAY_FIELDS (the fields of the
+    JAX package's EngineOps carry over one to one). Float arrays are cast to
+    `dtype`, index arrays to int64, scalars to Python floats."""
+    def f(key):
+        return torch.as_tensor(np.array(arrays[key]),
+                               dtype=dtype, device=device)
+
+    def idx(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+
+    nelem = tuple(int(n) for n in nelem)
+
+    def lay(fam, ncomp):
+        perms = np.asarray(arrays[f"lay_{fam}.perms"])
+        return L.LocalLayout(
+            perms=tuple(idx(p) for p in perms),
+            inv_mult=f(f"lay_{fam}.inv_mult"), ngl=int(ngl), nelem=nelem,
+            ncomp=int(ncomp))
+
+    return EngineOps(
+        KT=f("KT"), RwT=f("RwT"), curlT=f("curlT"), srtT=f("srtT"),
+        divT=f("divT"),
+        lay_v=lay("v", dim), lay_w=lay("w", dim_w), lay_s=lay("s", dim_s),
+        winv_v=f("winv_v"), winv_w=f("winv_w"), winv_s=f("winv_s"),
+        free_main=f("free_main"), free_fs=f("free_fs"), diag=f("diag"),
+        mask_vel=f("mask_vel"), mask_vort=f("mask_vort"),
+        mask_tang=f("mask_tang"), const_vel=f("const_vel"),
+        const_vort=f("const_vort"), const_tang=f("const_tang"),
+        P_v2cm=idx(arrays["P_v2cm"]), P_cm2s=idx(arrays["P_cm2s"]),
+        rho=float(arrays["rho"]), mu=float(arrays["mu"]),
+        nu=float(arrays["nu"]),
+        ngl=int(ngl), nelem=nelem, dim=int(dim), dim_w=int(dim_w),
+        dim_s=int(dim_s), is_ns=bool(is_ns), cg_rtol=float(cg_rtol),
+        cg_atol=float(cg_atol), cg_maxiter=int(cg_maxiter))
+
+
+def build_engine(mesh, bc, em_K, em_Rw, op_curl, op_srt, op_div, op_weight,
+                 rho, mu, *, device, dtype, cg_rtol=1e-12, cg_atol=0.0,
+                 cg_maxiter=2000) -> EngineOps:
+    """Assemble EngineOps from setup-time numpy data (box mesh, Jacobi CG).
+
+    em_*/op_* are the dense element matrices from `elements/kle.py`;
+    op_weight is the per-local-node quadrature weight used for lumping.
+    """
+    if not getattr(mesh, "is_box", False):
+        raise NotImplementedError("unstructured meshes are not ported yet "
+                                  "(ROADMAP Queue A item 12)")
+    arrays = _engine_arrays(mesh, bc, em_K, em_Rw, op_curl, op_srt, op_div,
+                            op_weight, rho, mu)
+    return ops_from_numpy(
+        arrays, ngl=mesh.ngl, nelem=mesh.nelem, dim=mesh.dim,
+        dim_w=mesh.dim_w, dim_s=mesh.dim_s, is_ns=bc.needs_fs_stage,
+        cg_rtol=cg_rtol, cg_atol=cg_atol, cg_maxiter=cg_maxiter,
+        device=device, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# boundary conditions
+# ---------------------------------------------------------------------------
+
+def _value_buffer(ops: EngineOps, time, attr: str,
+                  const: torch.Tensor | None = None) -> torch.Tensor:
+    """(E, nnc) buffer holding boundary values on boundary slots. Only
+    constant sides exist in the port so far, so this is the constant
+    buffer; analytic-function sides come with ROADMAP item 5."""
+    if const is None:
+        const = ops.const_vel if attr == "velocity" else ops.const_vort
+    return const
+
+
+def apply_velocity_bc(ops: EngineOps, vel, time):
+    """setValuesToVec for velocity."""
+    U = _value_buffer(ops, time, "velocity")
+    return vel * (1.0 - ops.mask_vel) + U * ops.mask_vel
+
+
+def apply_vorticity_bc(ops: EngineOps, vort, time):
+    U = _value_buffer(ops, time, "vorticity")
+    return vort * (1.0 - ops.mask_vort) + U * ops.mask_vort
+
+
+def apply_tangential_bc(ops: EngineOps, vel, time):
+    """Re-impose tangential wall velocity after the FS stage
+    (setTangentialValuesToVec)."""
+    U = _value_buffer(ops, time, "velocity", const=ops.const_tang)
+    return vel * (1.0 - ops.mask_tang) + U * ops.mask_tang
+
+
+# ---------------------------------------------------------------------------
+# operator applications
+# ---------------------------------------------------------------------------
+
+def _dot_v(ops: EngineOps):
+    inv = ops.lay_v.inv_mult
+
+    def dot(a, b):
+        return (a * b * inv).sum()
+
+    return dot
+
+
+def _apply_mat(ops: EngineOps, lay, t, matT):
+    """y = DSS(t @ matT), the one hot operator-application pattern, always
+    through the fused kernel (its plain version on the CPU)."""
+    y, _ = fused_apply(t, matT, ops.nelem, ops.ngl, lay.ncomp)
+    return y
+
+
+def apply_K(ops: EngineOps, v):
+    return _apply_mat(ops, ops.lay_v, v, ops.KT)
+
+
+def curl(ops: EngineOps, v):
+    """Nodal curl (row-scaled assembled Curl)."""
+    return _apply_mat(ops, ops.lay_w, v, ops.curlT) * ops.winv_w
+
+
+def srt(ops: EngineOps, v):
+    return _apply_mat(ops, ops.lay_s, v, ops.srtT) * ops.winv_s
+
+
+def div_srt(ops: EngineOps, s):
+    return _apply_mat(ops, ops.lay_v, s, ops.divT) * ops.winv_v
+
+
+def vtensv(ops: EngineOps, vel):
+    """v (x) v packed into strain slots via component-major shuffles."""
+    nn, dim = ops.nn, ops.dim
+    cm = vel[:, ops.P_v2cm]                     # (E, dim*nn) component-major
+    comps = [cm[:, k * nn:(k + 1) * nn] for k in range(dim)]
+    prods = torch.cat(
+        [comps[i] * comps[j] for i, j in _vtensv_pairs(dim)], dim=1)
+    return prods[:, ops.P_cm2s]                 # -> interleaved strain
+
+
+# ---------------------------------------------------------------------------
+# solves
+# ---------------------------------------------------------------------------
+
+def _masked_solve(ops: EngineOps, free, vort, vel, stats=None):
+    """Solve the Dirichlet-condensed KLE system on the free subspace with
+    Jacobi-preconditioned CG. `stats`, when a list, gets the solve's
+    (iters, loop_applies) (see solver/cg.py CGResult)."""
+    con = 1.0 - free
+    vc = con * vel
+    b = free * (_apply_mat(ops, ops.lay_v, vort, ops.RwT)
+                - apply_K(ops, vc)) + vc
+
+    def A0(v):
+        """Full Dirichlet-condensed operator — initial residual only."""
+        return free * apply_K(ops, free * v) + con * v
+
+    def A(v):
+        """In-loop operator: every CG loop vector is exactly zero on the
+        constrained dofs (r0_con = b_con - A0(x0)_con = vc - vc = 0, and
+        Ap/z/p inherit the zeros), so `free*v == v` bitwise and `con*v`
+        vanishes; dropping them saves two full passes per iteration with
+        a bitwise-identical trajectory."""
+        return free * apply_K(ops, v)
+
+    # the Jacobi divide maps zeros to zeros, so z keeps the constrained
+    # dofs at exactly zero (the contract the A0/A split rests on)
+    dmask = free * ops.diag + con
+
+    def M_inv(r):
+        return r / dmask
+
+    res = pcg(A, b, free * vel + vc, M_inv=M_inv,
+              rtol=ops.cg_rtol, atol=ops.cg_atol,
+              maxiter=ops.cg_maxiter, dot=_dot_v(ops), A0=A0)
+    if stats is not None:
+        stats.append((res.iters, res.loop_applies))
+    return res.x
+
+
+def solve_kle_local(ops: EngineOps, vort, vel, time, stats=None):
+    """BC application + (two-stage) KLE solve, local layout (evalRHS
+    pre-solve chain). `stats`, when a list, gets one (iters, loop_applies)
+    per solve (free-slip stage first on no-slip problems)."""
+    vort = apply_vorticity_bc(ops, vort, time)
+    vel = apply_velocity_bc(ops, vel, time)
+    if ops.is_ns:
+        vel_fs = _masked_solve(ops, ops.free_fs, vort, vel, stats)
+        vel_fs = apply_tangential_bc(ops, vel_fs, time)
+        vort = curl(ops, vel_fs)
+    vel = _masked_solve(ops, ops.free_main, vort, vel, stats)
+    return vort, vel
+
+
+def rhs_local(ops: EngineOps, time, vort, vel, stats=None):
+    """d(vort)/dt in local layout (evalRHS)."""
+    _, vel = solve_kle_local(ops, vort, vel, time, stats)
+    vtv = vtensv(ops, vel)
+    aux1 = 2.0 * ops.mu * srt(ops, vel) - ops.rho * vtv
+    rhs_v = div_srt(ops, aux1) / ops.rho
+    f = curl(ops, rhs_v)
+    return f, vel
+
+
+def rk_error_norm(ops: EngineOps, e):
+    """Ownership-weighted RMS over global vorticity dofs."""
+    n_glob = ops.lay_w.inv_mult.sum()   # == n_nodes*dim_w
+    ss = (e * e * ops.lay_w.inv_mult).sum()
+    return torch.sqrt(ss / n_glob)
