@@ -3,8 +3,9 @@
 `load_library()` compiles every source in `pynama_tpu_torch/csrc/` into one
 shared library with a plain C interface, at first use, and binds it with
 ctypes. The library goes to `pynama_tpu_torch/_build/`, named by a hash of
-the sources and the compiler flags, so an edited source builds anew and an
-unchanged one is reused. Nothing here runs at import time: the package
+every file the build reads (`*.cu` and the `*.cuh` headers they include)
+and the compiler flags, so an edited source or header builds anew and an
+unchanged tree is reused. Nothing here runs at import time: the package
 imports on machines without nvcc or a GPU.
 
 A missing nvcc or a failed build raises with the compiler's output. There is
@@ -39,6 +40,12 @@ def _sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def _inputs() -> list[str]:
+    """Every file the build reads: the sources and their headers."""
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
 def _find_nvcc() -> str:
     nvcc = shutil.which("nvcc")
     if nvcc is None:
@@ -56,7 +63,7 @@ def _find_nvcc() -> str:
 
 def _lib_path() -> str:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _inputs():
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())

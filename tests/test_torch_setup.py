@@ -119,9 +119,25 @@ def test_custom_func_bc_not_ported():
 
 
 def test_port_never_imports_jax():
-    code = ("import pynama_tpu_torch, pynama_tpu_torch.cases.problem, "
-            "pynama_tpu_torch.ops.fused, sys; "
+    """Every submodule of the port imports without jax or pynama_tpu."""
+    code = ("import importlib, pkgutil, sys, pynama_tpu_torch as p; "
+            "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+            "'pynama_tpu_torch.')]; "
+            "[importlib.import_module(n) for n in names]; "
             "assert 'jax' not in sys.modules; "
             "assert 'pynama_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
+
+
+def test_library_hash_covers_headers(tmp_path, monkeypatch):
+    """An edit to a csrc/*.cuh header alone names a new library, so a
+    stale build is never loaded (no nvcc needed)."""
+    from pynama_tpu_torch.ops import _build
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    before = _build._lib_path()
+    assert _build._sources() == [str(tmp_path / "k.cu")]
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    assert _build._lib_path() != before
