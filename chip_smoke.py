@@ -1,9 +1,9 @@
-"""GPU smoke run of pynama_tpu_torch: build the kernel, check it, drive the
-main path at full size.
+"""GPU smoke run of pynama_tpu_torch: build the kernels, check them, drive
+the main path and the decomposition drivers at full size.
 
     python3 chip_smoke.py
 
-Needs one CUDA GPU (an H100: the kernel is built for sm_90a) and nvcc; it
+Needs one CUDA GPU (an H100: the kernels are built for sm_90a) and nvcc; it
 builds `pynama_tpu_torch/csrc/` into `pynama_tpu_torch/_build/` on first
 use. Phases, each printing its own line; any failure raises and the script
 exits non-zero without the final result line:
@@ -16,6 +16,15 @@ exits non-zero without the final result line:
             float64: max|err|/max|ref| <= 1e-5 (f32) / 1e-12 (f64), and every
             duplicated slot bitwise equal; kernel and plain times (CUDA
             events, median) at the 24^3 ngl=4 shapes
+3b. decomp  the decomposition kernels against their plain versions at the
+            same shapes: K4 plainmm_apply and K3 variant_apply (blocks 1, 2
+            and ne0, both do_rolls; f32 and f64, same limits; duplicate
+            slots or seam pairs bitwise equal), K2 fused3x_apply (f32, same
+            limit, duplicate slots bitwise equal, <= 5e-5 from fused_apply);
+            kernel and plain times at the 24^3 ngl=4 shapes; then the two
+            drivers exp.fused_decomp and exp.mm3x at 24^3 ngl=4 (200
+            applies per chain, 3 rounds), with each kernel's launch count
+            set to 0 just before them and read just after
 4. parity   a small 3D cavity (ngl=3, 3^3, f64): one rhs_local and a
             3-step transient on the GPU (kernel) against the CPU (plain
             version), relative error <= 1e-9, same accepted steps
@@ -25,7 +34,8 @@ exits non-zero without the final result line:
             seconds per step, CG iterations per solve, kernel launches (which
             must account for every operator application) and peak memory
 
-The last two lines are the kernel record as JSON and the result line
+The last three lines are the card's name and power limit (nvidia-smi), the
+record of the four kernels as JSON and the result line
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -40,6 +50,11 @@ import numpy as np
 F32_LIMIT = 1e-5     # max|err|/max|ref|, float32 (tests/test_fused.py)
 F64_LIMIT = 1e-12
 PARITY_LIMIT = 1e-9
+# the decomposition drivers: the flagship shape, depth cut to 200 applies
+# per chain and 3 rounds
+DRIVER_ARGS = ["24", "4", "--nit", "200", "--rounds", "3"]
+SPLIT_LIMIT = 5e-5   # fused3x vs fused_apply: the bf16 split's own error
+                     # (~7e-6 on the CPU), with margin
 
 # (label, nelem, ngl, [(ncomp_in, ncomp_out), ...]) — every (nnc_in,
 # nnc_out) pair the engine applies: K v->v, Rw w->v, curl v->w, srt v->s,
@@ -132,6 +147,17 @@ def _median_ms(torch, fn, reps=30, warmup=3):
     return float(np.median(times))
 
 
+def _timed_pair(torch, kernel, plain):
+    """Kernel and plain-version medians, interleaved plain, kernel, kernel,
+    plain; the min of each pair of runs."""
+    p1 = _median_ms(torch, plain)
+    k1 = _median_ms(torch, kernel)
+    k2 = _median_ms(torch, kernel)
+    p2 = _median_ms(torch, plain)
+    return dict(ms=min(k1, k2), plain_ms=min(p1, p2), ms_runs=[k1, k2],
+                plain_ms_runs=[p1, p2])
+
+
 def phase_kernels(torch, dev):
     from pynama_tpu_torch.mesh import BoxMesh
     from pynama_tpu_torch.ops.fused import fused_apply, fused_apply_ref
@@ -166,17 +192,9 @@ def phase_kernels(torch, dev):
                            max_abs_err=err_y, bnd_abs_err=err_b,
                            rel_err=rel, limit=limit, dup_spread=spread)
                 if label == "3d-ngl4-24^3":
-                    # interleaved: plain, kernel, kernel, plain
-                    p1 = _median_ms(torch, lambda: fused_apply_ref(
-                        t, m, nelem, ngl, cout))
-                    k1 = _median_ms(torch, lambda: fused_apply(
-                        t, m, nelem, ngl, cout))
-                    k2 = _median_ms(torch, lambda: fused_apply(
-                        t, m, nelem, ngl, cout))
-                    p2 = _median_ms(torch, lambda: fused_apply_ref(
-                        t, m, nelem, ngl, cout))
-                    row.update(ms=min(k1, k2), plain_ms=min(p1, p2),
-                               ms_runs=[k1, k2], plain_ms_runs=[p1, p2])
+                    row.update(_timed_pair(
+                        torch, lambda: fused_apply(t, m, nelem, ngl, cout),
+                        lambda: fused_apply_ref(t, m, nelem, ngl, cout)))
                     if dtype == torch.float32 and (cin, cout) == (3, 3):
                         record = row
                 emit("kernels", **row)
@@ -184,6 +202,161 @@ def phase_kernels(torch, dev):
                       f"{nn * cin}->{nn * cout}: rel err {rel:.3e} > {limit}")
                 check(spread == 0.0, f"fused_apply {label} {row['dtype']}: "
                       f"duplicate slots differ by {spread:.3e}")
+    return record
+
+
+def _seam_pairs_equal(torch, y, nelem, ngl, blk):
+    """Both slots of every interior block-seam pair hold the same bits."""
+    ne0 = nelem[0]
+    nnc = y.shape[1]
+    plane = nnc // ngl
+    y3 = y.view(ne0, y.shape[0] // ne0, nnc)
+    return torch.equal(y3[blk - 1:ne0 - 1:blk, :, nnc - plane:],
+                       y3[blk::blk, :, :plane])
+
+
+def _decomp_checks(torch, dev):
+    """K2-K4 against their plain versions at every engine shape; returns
+    the 24^3 ngl=4 f32 192->192 row of each kernel (with its times)."""
+    from pynama_tpu_torch.exp import fused_decomp as D
+    from pynama_tpu_torch.exp import mm3x as M3
+    from pynama_tpu_torch.mesh import BoxMesh
+    from pynama_tpu_torch.ops.fused import fused_apply
+
+    record = {}
+    seed = 100
+    for label, nelem, ngl, pairs in SHAPES:
+        dim = len(nelem)
+        nn = ngl ** dim
+        E = int(np.prod(nelem))
+        R = E // nelem[0]
+        blocks = sorted({b for b in (1, 2, nelem[0]) if nelem[0] % b == 0})
+        mesh = BoxMesh.create(ngl, nelem, [0] * dim, [1] * dim)
+        flagship = label == "3d-ngl4-24^3"
+        for dtype, limit in ((torch.float32, F32_LIMIT),
+                             (torch.float64, F64_LIMIT)):
+            dname = str(dtype).split(".")[-1]
+            rows = {"plainmm": [], "variant": [], "fused3x": []}
+            for cin, cout in pairs:
+                seed += 1
+                rng = np.random.default_rng(seed)
+                t = torch.as_tensor(rng.standard_normal((E, nn * cin)),
+                                    dtype=dtype, device=dev)
+                m = torch.as_tensor(
+                    rng.standard_normal((nn * cin, nn * cout)),
+                    dtype=dtype, device=dev)
+                what = f"{label} {dname} {nn * cin}->{nn * cout}"
+
+                def compare(name, y, yr, **extra):
+                    scale = float(yr.abs().max())
+                    err = float((y - yr).abs().max())
+                    row = dict(pair=[nn * cin, nn * cout], max_abs_err=err,
+                               rel_err=err / scale, **extra)
+                    rows[name].append(row)
+                    check(err / scale <= limit, f"{name} {what} "
+                          f"{extra}: rel err {err / scale:.3e} > {limit}")
+                    return row
+
+                # K4: the GEMM alone, one axis-0 slice per TPU block
+                row = compare("plainmm", D.plainmm_apply(t, m, R),
+                              D.plainmm_apply_ref(t, m, R))
+                if flagship:
+                    row.update(_timed_pair(
+                        torch, lambda: D.plainmm_apply(t, m, R),
+                        lambda: D.plainmm_apply_ref(t, m, R)))
+                    if dtype == torch.float32 and (cin, cout) == (3, 3):
+                        record["plainmm"] = row
+                # K3: both do_rolls, every block
+                for blk in blocks:
+                    for rolls in (True, False):
+                        args = (t, m, nelem, ngl, cout, blk, rolls)
+                        y = D.variant_apply(*args)
+                        torch.cuda.synchronize()
+                        if rolls:
+                            spread = _dup_spread(torch, y, mesh.cell_nodes,
+                                                 cout)
+                            check(spread == 0.0, f"variant {what} block "
+                                  f"{blk}: duplicate slots differ by "
+                                  f"{spread:.3e}")
+                        else:
+                            check(_seam_pairs_equal(torch, y, nelem, ngl,
+                                                    blk),
+                                  f"variant {what} block {blk}: seam "
+                                  "pair slots differ")
+                        row = compare("variant", y,
+                                      D.variant_apply_ref(*args),
+                                      block=blk, do_rolls=rolls)
+                        if flagship and blk == 1 and not rolls:
+                            row.update(_timed_pair(
+                                torch, lambda: D.variant_apply(*args),
+                                lambda: D.variant_apply_ref(*args)))
+                            if dtype == torch.float32 and (cin, cout) \
+                                    == (3, 3):
+                                record["variant"] = row
+                if dtype != torch.float32:
+                    continue
+                # K2: f32 only; against its plain version and against K1
+                y = M3.fused3x_apply(t, m, nelem, ngl, cout, 1)
+                spread = _dup_spread(torch, y, mesh.cell_nodes, cout)
+                y1 = fused_apply(t, m, nelem, ngl, cout)[0]
+                split = float((y - y1).abs().max() / y1.abs().max())
+                row = compare("fused3x", y, M3.fused3x_apply_ref(
+                    t, m, nelem, ngl, cout, 1), dup_spread=spread,
+                    rel_vs_fused_apply=split)
+                check(spread == 0.0, f"fused3x {what}: duplicate slots "
+                      f"differ by {spread:.3e}")
+                check(split <= SPLIT_LIMIT, f"fused3x {what}: {split:.3e} "
+                      f"from fused_apply > {SPLIT_LIMIT}")
+                if flagship:
+                    row.update(_timed_pair(
+                        torch, lambda: M3.fused3x_apply(t, m, nelem, ngl,
+                                                        cout, 1),
+                        lambda: M3.fused3x_apply_ref(t, m, nelem, ngl,
+                                                     cout, 1)))
+                    if (cin, cout) == (3, 3):
+                        record["fused3x"] = row
+            for name, kr in rows.items():
+                if kr:
+                    emit("decomp", kernel=name, shape=label, dtype=dname,
+                         limit=limit,
+                         worst_rel_err=max(r["rel_err"] for r in kr),
+                         **({"rows": kr} if flagship else {}))
+    return record
+
+
+def phase_decomp(torch, dev):
+    """3b: K2-K4 checked, then both decomposition drivers at 24^3 ngl=4
+    with the launch counts read around them."""
+    from pynama_tpu_torch.exp import fused_decomp as D
+    from pynama_tpu_torch.exp import mm3x as M3
+
+    record = _decomp_checks(torch, dev)
+    wrappers = {"plainmm": D.plainmm_apply, "variant": D.variant_apply,
+                "fused3x": M3.fused3x_apply}
+    for fn in wrappers.values():
+        fn.launches = 0
+    best = D.main(DRIVER_ARGS)
+    m3 = M3.main(DRIVER_ARGS)
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    us = {k: v * 1e6 for k, v in best.items()}
+    emit("decomp_drivers", config="24^3 ngl=4 f32 192->192 block 1, "
+         "nit 200, 3 rounds", fused_decomp_us=us,
+         dss_pass_us=us["fused"] - us["nodss"],
+         seam_adds_us=us["nodss"] - us["plainmm"],
+         hand_vs_cublas_mm_us=us["plainmm"] - us["torch_mm"],
+         mm3x_us={k: v * 1e6 for k, v in m3["times"].items()},
+         mm3x_max_abs_diff=m3["max_abs_diff"], mm3x_scale=m3["scale"],
+         launches=launches)
+    check(m3["max_abs_diff"] <= SPLIT_LIMIT * m3["scale"],
+          f"mm3x driver: 3x vs fused_apply {m3['max_abs_diff']:.3e} > "
+          f"{SPLIT_LIMIT} x {m3['scale']:.3e}")
+    check(all(np.isfinite(v) and v > 0 for v in us.values()),
+          f"decomposition times {us}")
+    check(all(n > 0 for n in launches.values()),
+          f"a decomposition kernel was not launched by the drivers: "
+          f"{launches}")
+    for k, n in launches.items():
+        record[k]["launches"] = n
     return record
 
 
@@ -290,16 +463,26 @@ def main() -> int:
     card = phase_device(torch)
     phase_build()
     record = phase_kernels(torch, dev)
+    decomp = phase_decomp(torch, dev)
     phase_parity(torch, dev)
     launches = phase_main(torch, dev)
 
+    record["launches"] = launches
+    kernels = [("fused_apply", "fused_apply.cu", "pynama_tpu/ops/fused.py:180",
+                record),
+               ("fused3x_apply", "fused3x.cu", "exp/mm3x.py:41",
+                decomp["fused3x"]),
+               ("variant_apply", "decomp.cu", "exp/fused_decomp.py:44",
+                decomp["variant"]),
+               ("plainmm_apply", "decomp.cu", "exp/fused_decomp.py:148",
+                decomp["plainmm"])]
     print(card)
     print(json.dumps({"kernels": [{
-        "name": "fused_apply", "route": "cuda",
-        "source": "pynama_tpu_torch/csrc/fused_apply.cu",
-        "replaces": "pynama_tpu/ops/fused.py:180",
-        "launches": launches, "max_abs_err": record["max_abs_err"],
-        "ms": record["ms"], "plain_ms": record["plain_ms"]}]}))
+        "name": name, "route": "cuda",
+        "source": f"pynama_tpu_torch/csrc/{src}", "replaces": replaces,
+        "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"]}
+        for name, src, replaces, r in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,8 +8,10 @@ bundles, an explicit device and dtype.
 
 The one operator-application kernel, `ops/fused.py::fused_apply`
 (y = DSS(t @ matT) on a box mesh), is hand-written CUDA C++ for Hopper
-(`csrc/fused_apply.cu`), compiled by nvcc at first use. CPU tensors take
-its plain PyTorch version.
+(`csrc/fused_apply.cu`), compiled by nvcc at first use. So are the
+measurement kernels of `exp/` that split its time (`csrc/decomp.cu`,
+`csrc/fused3x.cu`, sharing `csrc/fused_common.cuh`). CPU tensors take each
+kernel's plain PyTorch version.
 
 This package never imports jax or pynama_tpu.
 """

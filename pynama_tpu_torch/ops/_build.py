@@ -2,11 +2,13 @@
 
 `load_library()` compiles every source in `pynama_tpu_torch/csrc/` into one
 shared library with a plain C interface, at first use, and binds it with
-ctypes. The library goes to `pynama_tpu_torch/_build/`, named by a hash of
-every file the build reads (`*.cu` and the `*.cuh` headers they include)
-and the compiler flags, so an edited source or header builds anew and an
-unchanged tree is reused. Nothing here runs at import time: the package
-imports on machines without nvcc or a GPU.
+ctypes. Each `*.cu` compiles in its own nvcc process, all started together,
+and one nvcc call links the objects. The library goes to
+`pynama_tpu_torch/_build/`, named by a hash of every file the build reads
+(`*.cu` and the `*.cuh` headers they include) and the compiler flags, so an
+edited source or header builds anew and an unchanged tree is reused. Nothing
+here runs at import time: the package imports on machines without nvcc or a
+GPU.
 
 A missing nvcc or a failed build raises with the compiler's output. There is
 no fallback.
@@ -26,14 +28,38 @@ _PKG = os.path.dirname(_HERE)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+COMPILE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_FLAGS = ["-shared"]
 
 _lib = None
 #: seconds the build in this process took (0.0: the library was built
 #: before) and the compiler's output (ptxas -v: registers, spills, smem)
 last_build_seconds = 0.0
 last_build_log = ""
+
+# C entry points: name -> argument types. vp = pointer or stream, i64 = an
+# element count, i32 = a small int. Every pointer must be c_void_p: without
+# argtypes ctypes passes a Python int as a 32-bit int and cuts the pointer.
+_VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# t, matT, u, y, bnd, E, nnc_in, ngl, ncomp_out, dim, ne0, ne1, ne2, stream
+_FUSED = [_VP, _VP, _VP, _VP, _VP, _I64, _I32, _I32, _I32, _I32,
+          _I32, _I32, _I32, _VP]
+# t, matT, y, M, K, N, stream
+_PLAINMM = [_VP, _VP, _VP, _I64, _I32, _I32, _VP]
+# t, matT, u, y, E, nnc_in, ngl, ncomp_out, dim, ne0, ne1, ne2, block,
+# do_rolls, stream
+_VARIANT = [_VP, _VP, _VP, _VP, _I64, _I32, _I32, _I32, _I32,
+            _I32, _I32, _I32, _I32, _I32, _VP]
+# t, matT, u, y, E, nnc_in, ngl, ncomp_out, dim, ne0, ne1, ne2, stream
+_FUSED3X = [_VP, _VP, _VP, _VP, _I64, _I32, _I32, _I32, _I32,
+            _I32, _I32, _I32, _VP]
+SIGNATURES = {
+    "pn_fused_apply_f32": _FUSED, "pn_fused_apply_f64": _FUSED,
+    "pn_plainmm_f32": _PLAINMM, "pn_plainmm_f64": _PLAINMM,
+    "pn_variant_apply_f32": _VARIANT, "pn_variant_apply_f64": _VARIANT,
+    "pn_fused3x_f32": _FUSED3X,
+}
 
 
 def _sources() -> list[str]:
@@ -67,7 +93,7 @@ def _lib_path() -> str:
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     return os.path.join(BUILD_DIR,
                         f"libpynama_kernels_{h.hexdigest()[:16]}.so")
 
@@ -76,21 +102,52 @@ def _build(out: str) -> None:
     global last_build_seconds, last_build_log
     nvcc = _find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # unique temp name + atomic rename: concurrent builders never load a
+    # unique temp names + atomic rename: concurrent builders never load a
     # half-written library
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()]
+    srcs = _sources()
+    objs = [f"{out}.{os.getpid()}.{i}.o" for i in range(len(srcs))]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    cmds = [[nvcc, *COMPILE_FLAGS, "-c", "-o", obj, src]
+            for src, obj in zip(srcs, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    log = "".join(o + e for o, e in outs)
+    try:
+        for cmd, p, (o, e) in zip(cmds, procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed (exit {p.returncode}): "
+                                   f"{' '.join(cmd)}\n{o}\n{e}")
+        cmd = [nvcc, *LINK_FLAGS, "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for f in objs + [tmp]:
+            if os.path.exists(f):
+                os.unlink(f)
     last_build_seconds = time.perf_counter() - t0
-    last_build_log = proc.stdout + proc.stderr
+    last_build_log = log
+
+
+def launch(symbol: str, device, *args) -> None:
+    """Call the library's C entry point `symbol` with `args` and PyTorch's
+    current stream on `device`; raise if it returns a CUDA error (a launch
+    the card refused never runs, and no later synchronize reports it)."""
+    import torch
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, symbol)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"{symbol} kernel launch failed: CUDA error {rc} "
+            f"({lib.pn_cuda_error_string(rc).decode()})")
 
 
 def load_library() -> ctypes.CDLL:
@@ -102,15 +159,11 @@ def load_library() -> ctypes.CDLL:
     if not os.path.exists(out):
         _build(out)
     lib = ctypes.CDLL(out)
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    for name in ("pn_fused_apply_f32", "pn_fused_apply_f64"):
+    for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
-        # t, matT, u, y, bnd, E, nnc_in, ngl, ncomp_out, dim,
-        # ne0, ne1, ne2, stream
-        fn.argtypes = [vp, vp, vp, vp, vp, i64, i32, i32, i32, i32,
-                       i32, i32, i32, vp]
-        fn.restype = i32
-    lib.pn_cuda_error_string.argtypes = [i32]
+        fn.argtypes = argtypes
+        fn.restype = _I32
+    lib.pn_cuda_error_string.argtypes = [_I32]
     lib.pn_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib

@@ -63,13 +63,15 @@ def fused_apply_ref(t: torch.Tensor, matT: torch.Tensor, nelem: tuple,
     return y, torch.stack([first, last])
 
 
-def _check(t, matT, nelem, ngl, ncomp_out):
+def check_inputs(t, matT, nelem, ngl, ncomp_out, name="fused_apply"):
+    """Raise on what the box-mesh apply kernels do not take; `name` is the
+    caller's, for the message."""
     if not isinstance(t, torch.Tensor) or not isinstance(matT, torch.Tensor):
-        raise TypeError("fused_apply takes torch tensors")
+        raise TypeError(f"{name} takes torch tensors")
     if t.device != matT.device:
         raise ValueError(f"t on {t.device}, matT on {matT.device}")
     if t.dtype not in _DTYPES or matT.dtype != t.dtype:
-        raise TypeError(f"fused_apply takes float32 or float64 tensors of "
+        raise TypeError(f"{name} takes float32 or float64 tensors of "
                         f"one dtype; got {t.dtype} and {matT.dtype}")
     if len(nelem) not in (2, 3) or min(nelem) < 1 or ngl < 2 \
             or ncomp_out < 1:
@@ -85,7 +87,13 @@ def _check(t, matT, nelem, ngl, ncomp_out):
         raise ValueError(f"matT must be ({t.shape[1]}, {nnc_out}); got "
                          f"{tuple(matT.shape)}")
     if not (t.is_contiguous() and matT.is_contiguous()):
-        raise ValueError("fused_apply takes contiguous tensors")
+        raise ValueError(f"{name} takes contiguous tensors")
+
+
+def check_device(t, name="fused_apply"):
+    """Raise unless t lies on the CPU (plain version) or a CUDA card."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {t.device}")
 
 
 def fused_apply(t: torch.Tensor, matT: torch.Tensor, nelem: tuple, ngl: int,
@@ -94,29 +102,20 @@ def fused_apply(t: torch.Tensor, matT: torch.Tensor, nelem: tuple, ngl: int,
     docstring. CPU tensors take the plain version, CUDA tensors the kernel."""
     nelem = tuple(int(n) for n in nelem)
     ngl, ncomp_out = int(ngl), int(ncomp_out)
-    _check(t, matT, nelem, ngl, ncomp_out)
+    check_inputs(t, matT, nelem, ngl, ncomp_out)
+    check_device(t)
     if t.device.type == "cpu":
         return fused_apply_ref(t, matT, nelem, ngl, ncomp_out)
-    if t.device.type != "cuda":
-        raise ValueError(f"fused_apply runs on cpu or cuda, not {t.device}")
 
-    from pynama_tpu_torch.ops._build import load_library
-    lib = load_library()
+    from pynama_tpu_torch.ops._build import launch
     dim, E, R, nnc_out, plane = _shapes(nelem, ngl, ncomp_out)
     u = torch.empty((E, nnc_out), dtype=t.dtype, device=t.device)
     y = torch.empty_like(u)
     bnd = torch.empty((2, R, plane), dtype=t.dtype, device=t.device)
     ne = list(nelem) + [1] * (3 - dim)
-    with torch.cuda.device(t.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, _DTYPES[t.dtype])(
-            t.data_ptr(), matT.data_ptr(), u.data_ptr(), y.data_ptr(),
-            bnd.data_ptr(), E, int(t.shape[1]), ngl, ncomp_out, dim,
-            ne[0], ne[1], ne[2], stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"fused_apply kernel launch failed: CUDA error {rc} "
-            f"({lib.pn_cuda_error_string(rc).decode()})")
+    launch(_DTYPES[t.dtype], t.device, t.data_ptr(), matT.data_ptr(),
+           u.data_ptr(), y.data_ptr(), bnd.data_ptr(), E, int(t.shape[1]),
+           ngl, ncomp_out, dim, ne[0], ne[1], ne[2])
     fused_apply.launches += 1
     return y, bnd
 

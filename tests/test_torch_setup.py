@@ -124,6 +124,7 @@ def test_port_never_imports_jax():
             "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
             "'pynama_tpu_torch.')]; "
             "[importlib.import_module(n) for n in names]; "
+            "assert 'pynama_tpu_torch.exp.mm3x' in sys.modules, names; "
             "assert 'jax' not in sys.modules; "
             "assert 'pynama_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
@@ -141,3 +142,6 @@ def test_library_hash_covers_headers(tmp_path, monkeypatch):
     assert _build._sources() == [str(tmp_path / "k.cu")]
     (tmp_path / "common.cuh").write_text("// v2\n")
     assert _build._lib_path() != before
+    assert _build.SIGNATURES.keys() >= {
+        "pn_fused_apply_f32", "pn_plainmm_f64", "pn_variant_apply_f32",
+        "pn_fused3x_f32"}
