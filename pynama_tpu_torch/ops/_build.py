@@ -102,7 +102,7 @@ def _build(out: str) -> None:
     global last_build_seconds, last_build_log
     nvcc = _find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # unique temp names + atomic rename: concurrent builders never load a
+    # unique temp names + atomic rename: a concurrent build never loads a
     # half-written library
     tmp = f"{out}.{os.getpid()}.tmp"
     srcs = _sources()
