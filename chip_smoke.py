@@ -14,15 +14,21 @@ exits non-zero without the final result line:
             the card, at every operator shape of the engine (3D ngl=4 24^3,
             3D ngl=7 8^3, 2D ngl=3 50x50, degenerate extents), float32 and
             float64: max|err|/max|ref| <= 1e-5 (f32) / 1e-12 (f64), and every
-            duplicated slot bitwise equal; kernel and plain times (CUDA
-            events, median) at the 24^3 ngl=4 shapes
+            duplicated slot bitwise equal; kernel and plain times at the
+            24^3 ngl=4 shapes: CUDA-event medians around single calls
+            (`ms`, host enqueue included) and device time per call from
+            torch.profiler over 20 calls (`device_us`, every kernel the call
+            launches), which ranks kernel against plain
 3b. decomp  the decomposition kernels against their plain versions at the
             same shapes: K4 plainmm_apply and K3 variant_apply (blocks 1, 2
             and ne0, both do_rolls; f32 and f64, same limits; duplicate
             slots or seam pairs bitwise equal), K2 fused3x_apply (f32, same
             limit, duplicate slots bitwise equal, <= 5e-5 from fused_apply);
-            kernel and plain times at the 24^3 ngl=4 shapes; then the two
-            drivers exp.fused_decomp and exp.mm3x at 24^3 ngl=4 (200
+            kernel and plain times at the 24^3 ngl=4 shapes; a GEMM sweep
+            of plainmm_apply over M in GEMM_M and (K, N) in GEMM_KN plus two
+            misaligned views, f32 and f64, printing each case's loader and
+            tile and failing unless both loaders ran in both dtypes; then the
+            two drivers exp.fused_decomp and exp.mm3x at 24^3 ngl=4 (200
             applies per chain, 3 rounds), with each kernel's launch count
             set to 0 just before them and read just after
 4. parity   a small 3D cavity (ngl=3, 3^3, f64): one rhs_local and a
@@ -55,6 +61,12 @@ PARITY_LIMIT = 1e-9
 DRIVER_ARGS = ["24", "4", "--nit", "200", "--rounds", "3"]
 SPLIT_LIMIT = 5e-5   # fused3x vs fused_apply: the bf16 split's own error
                      # (~7e-6 on the CPU), with margin
+DEVICE_CALLS = 20    # calls per profiled device time
+# the GEMM sweep: row counts around the 64- and 128-row tiles and the
+# flagship's E, at every (K, N) the engine gives the GEMM
+GEMM_M = [1, 63, 64, 127, 129, 13824]
+GEMM_KN = [(9, 18), (27, 18), (192, 192), (192, 384), (384, 192),
+           (1029, 2058)]
 
 # (label, nelem, ngl, [(ncomp_in, ncomp_out), ...]) — every (nnc_in,
 # nnc_out) pair the engine applies: K v->v, Rw w->v, curl v->w, srt v->s,
@@ -147,15 +159,45 @@ def _median_ms(torch, fn, reps=30, warmup=3):
     return float(np.median(times))
 
 
+def _device_us(torch, fn, calls=DEVICE_CALLS, tries=3):
+    """Device time per call, µs: the self device time of every kernel that
+    `calls` calls of fn launch (torch.profiler, CUDA activity), summed and
+    divided by `calls`; and the same per kernel name. On the H100 machine
+    the profiler now and then returns a window with no kernel records, so a
+    window in which some kernel did not run a multiple of `calls` times is
+    taken again, `tries` times at most."""
+    fn()
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity.CUDA
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[act]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.self_device_time_total > 0]
+        if rows and all(e.count % calls == 0 for e in rows):
+            per = {e.key[:60]: e.self_device_time_total / calls
+                   for e in rows}
+            return sum(per.values()), per
+    raise RuntimeError(f"the profiler saw no whole window in {tries} tries")
+
+
 def _timed_pair(torch, kernel, plain):
-    """Kernel and plain-version medians, interleaved plain, kernel, kernel,
-    plain; the min of each pair of runs."""
+    """Kernel and plain-version times: CUDA-event medians around single
+    calls (host enqueue included), interleaved plain, kernel, kernel, plain,
+    the min of each pair of runs; and device time per call from the
+    profiler, which ranks the two."""
     p1 = _median_ms(torch, plain)
     k1 = _median_ms(torch, kernel)
     k2 = _median_ms(torch, kernel)
     p2 = _median_ms(torch, plain)
+    dev_us, dev_per = _device_us(torch, kernel)
+    plain_us, plain_per = _device_us(torch, plain)
     return dict(ms=min(k1, k2), plain_ms=min(p1, p2), ms_runs=[k1, k2],
-                plain_ms_runs=[p1, p2])
+                plain_ms_runs=[p1, p2], device_us=dev_us,
+                plain_device_us=plain_us, device_kernels=dev_per,
+                plain_device_kernels=plain_per)
 
 
 def phase_kernels(torch, dev):
@@ -324,13 +366,61 @@ def _decomp_checks(torch, dev):
     return record
 
 
+def _gemm_sweep(torch, dev):
+    """K4 plainmm_apply (the GEMM of K1, K3 and K4) against its plain
+    version at every GEMM_M x GEMM_KN, plus two misaligned contiguous views
+    (`big[1:]` of an (M+1, 9) buffer; a (M, 192) view one element into a
+    flat buffer), f32 and f64; prints the loader and tile of each case."""
+    from pynama_tpu_torch.exp import fused_decomp as D
+
+    seed = 500
+    loaders = set()
+    for dtype, limit in ((torch.float32, F32_LIMIT),
+                         (torch.float64, F64_LIMIT)):
+        dname = str(dtype).split(".")[-1]
+        cases = [(M, K, N, "") for M in GEMM_M for K, N in GEMM_KN]
+        cases += [(13824, 9, 18, "rows+1"), (13824, 192, 192, "offset+1")]
+        rows = []
+        for M, K, N, view in cases:
+            seed += 1
+            rng = np.random.default_rng(seed)
+            if view == "rows+1":
+                t = torch.as_tensor(rng.standard_normal((M + 1, K)),
+                                    dtype=dtype, device=dev)[1:]
+            elif view == "offset+1":
+                t = torch.as_tensor(rng.standard_normal(M * K + 1),
+                                    dtype=dtype, device=dev)[1:].view(M, K)
+            else:
+                t = torch.as_tensor(rng.standard_normal((M, K)), dtype=dtype,
+                                    device=dev)
+            m = torch.as_tensor(rng.standard_normal((K, N)), dtype=dtype,
+                                device=dev)
+            y = D.plainmm_apply(t, m, M)
+            yr = D.plainmm_apply_ref(t, m, M)
+            torch.cuda.synchronize()
+            plan = D.gemm_plan(t, m, y)
+            rel = float((y - yr).abs().max() / yr.abs().max())
+            loaders.add((dname, plan["loader_bytes"]))
+            rows.append([M, K, N, view, plan["loader_bytes"], plan["tile"],
+                         rel])
+            check(rel <= limit, f"plainmm {dname} M={M} K={K} N={N} {view}:"
+                  f" rel err {rel:.3e} > {limit}")
+        emit("gemm_sweep", dtype=dname, limit=limit,
+             worst_rel_err=max(r[-1] for r in rows),
+             cases="[M, K, N, view, loader_bytes, tile, rel_err]", rows=rows)
+    want = {("float32", 16), ("float32", 4), ("float64", 16), ("float64", 8)}
+    check(loaders == want, f"GEMM loaders exercised {sorted(loaders)}, want "
+          f"{sorted(want)}")
+
+
 def phase_decomp(torch, dev):
-    """3b: K2-K4 checked, then both decomposition drivers at 24^3 ngl=4
-    with the launch counts read around them."""
+    """3b: K2-K4 checked, the GEMM sweep, then both decomposition drivers
+    at 24^3 ngl=4 with the launch counts read around them."""
     from pynama_tpu_torch.exp import fused_decomp as D
     from pynama_tpu_torch.exp import mm3x as M3
 
     record = _decomp_checks(torch, dev)
+    _gemm_sweep(torch, dev)
     wrappers = {"plainmm": D.plainmm_apply, "variant": D.variant_apply,
                 "fused3x": M3.fused3x_apply}
     for fn in wrappers.values():
@@ -481,7 +571,8 @@ def main() -> int:
         "name": name, "route": "cuda",
         "source": f"pynama_tpu_torch/csrc/{src}", "replaces": replaces,
         "launches": r["launches"], "max_abs_err": r["max_abs_err"],
-        "ms": r["ms"], "plain_ms": r["plain_ms"]}
+        "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "device_us": r["device_us"], "plain_device_us": r["plain_device_us"]}
         for name, src, replaces, r in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,7 @@
 //
 //   plainmm          gemm_kernel alone (fused_common.cuh), y = t @ matT.
 //                    The TPU's `block` (rows per grid step) has no Hopper
-//                    meaning: the GEMM tiles are 64x64x16 whatever it is.
+//                    meaning: the GEMM's tile is chosen by launch_gemm.
 //   variant, rolls   gemm_kernel + dss_kernel, K1 without bnd_kernel; y is
 //                    bitwise K1's y.
 //   variant, no rolls gemm_kernel into y, then seam_kernel: at each interior
@@ -22,34 +22,75 @@
 //                    skipped: nothing is added inside a block or along axes
 //                    1..dim-1.
 //
-// What bounds them on an H100: plainmm is K1's FFMA GEMM (about 1.0 GFLOP
-// against 21 MB at 24^3 ngl=4 192->192), far from both the 67 TFLOP/s FP32
-// and the 3.35 TB/s roofs; it is kept as it is because the decomposition
-// must time K1's GEMM, not a better one. seam_kernel touches 2 planes per
-// seam (at 24^3 ngl=4 block 1, 23 * 576 pairs of 48 values, ~10 MB read and
-// written), a memory-bound pass of one thread per slot pair. It runs in
-// place on y: each thread reads both raw values before it writes the one
-// sum to both slots, and no other thread touches either slot (plane <=
-// nnc/2, so the first and last planes of a row are disjoint).
+// What bounds them on an H100. plainmm is the GEMM, bound by FFMA issue in
+// f32 and by DMMA and HBM in f64; its design is in fused_common.cuh's head.
+// K1, K3 and K4 run that one GEMM, so the decomposition's plainmm - torch_mm
+// line reads it against cuBLAS directly.
+//
+// seam_kernel moves 2 planes per seam pair (at 24^3 ngl=4 block 1, 23 * 576
+// pairs of 48 values, ~10 MB read and written), so it is bound by HBM (3 us
+// at 3.35 TB/s). One flat grid of 256-thread blocks covers every (seam, r,
+// column) triple, and each thread moves one 16-byte vector of the pair (a
+// float4 or double2) where the plane and the row length allow, one value
+// otherwise (a 2D plane is 3 * ncomp values). It runs in place on y: each
+// thread reads both raw vectors before it writes the one sum to both slots,
+// and no other thread touches either (plane <= nnc/2, so the first and last
+// planes of a row are disjoint); both slots hold bitwise the same sum.
 
 #include "fused_common.cuh"
 
 namespace {
 
-// block b = (s - 1) * R + r, for seam s in 1..nblk-1 and r < R; threads
-// walk the plane's columns j
+__device__ __forceinline__ float4 vadd(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+__device__ __forceinline__ double2 vadd(double2 a, double2 b) {
+  return make_double2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float vadd(float a, float b) { return a + b; }
+__device__ __forceinline__ double vadd(double a, double b) { return a + b; }
+
+// thread i: vector j of pair (s - 1) * R + r, i = ((s - 1) * R + r) * plane
+// + j; nnc and plane count vectors of V. I is uint32_t unless n overflows it.
+template <typename V, typename I>
+__global__ void __launch_bounds__(256)
+seam_kernel(V* __restrict__ y, I n, int nnc, int plane, int R, int blk) {
+  const I i = (I)blockIdx.x * 256 + threadIdx.x;
+  if (i >= n) return;
+  const I pair = i / plane;
+  const int j = (int)(i - pair * plane);
+  const int s = (int)(pair / R) + 1;
+  const int r = (int)(pair - (I)(s - 1) * R);
+  V* lo = y + ((int64_t)(s * blk - 1) * R + r) * nnc + (nnc - plane) + j;
+  V* hi = y + ((int64_t)s * blk * R + r) * nnc + j;
+  const V v = vadd(*lo, *hi);
+  *lo = v;
+  *hi = v;
+}
+
+template <typename T, typename V>
+int launch_seams_as(T* y, int64_t pairs, int nnc, int plane, int R, int blk,
+                    cudaStream_t stream) {
+  constexpr int W = sizeof(V) / sizeof(T);
+  const int64_t n = pairs * (plane / W);
+  const unsigned blocks = (unsigned)((n + 255) / 256);
+  if (n <= INT32_MAX)
+    seam_kernel<V, uint32_t><<<blocks, 256, 0, stream>>>(
+        (V*)y, (uint32_t)n, nnc / W, plane / W, R, blk);
+  else
+    seam_kernel<V, int64_t><<<blocks, 256, 0, stream>>>(
+        (V*)y, n, nnc / W, plane / W, R, blk);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
-__global__ void seam_kernel(T* __restrict__ y, int nnc, int plane, int R,
-                            int blk) {
-  const int s = blockIdx.x / R + 1;
-  const int r = blockIdx.x - (s - 1) * R;
-  T* lo = y + ((int64_t)(s * blk - 1) * R + r) * nnc + (nnc - plane);
-  T* hi = y + ((int64_t)s * blk * R + r) * nnc;
-  for (int j = threadIdx.x; j < plane; j += blockDim.x) {
-    const T v = lo[j] + hi[j];
-    lo[j] = v;
-    hi[j] = v;
-  }
+int launch_seams(T* y, int64_t pairs, int nnc, int plane, int R, int blk,
+                 cudaStream_t stream) {
+  using V = std::conditional_t<std::is_same_v<T, float>, float4, double2>;
+  constexpr int W = sizeof(V) / sizeof(T);
+  if (plane % W == 0 && nnc % W == 0 && ((uintptr_t)y & 15) == 0)
+    return launch_seams_as<T, V>(y, pairs, nnc, plane, R, blk, stream);
+  return launch_seams_as<T, T>(y, pairs, nnc, plane, R, blk, stream);
 }
 
 template <typename T>
@@ -68,10 +109,8 @@ int launch_variant(const T* t, const T* matT, T* u, T* y, int64_t E,
   const int nblk = s.ne[0] / blk;
   if (nblk < 2) return 0;
   const int R = (int)(E / s.ne[0]);
-  const int plane = s.nnc / ngl;
-  seam_kernel<T><<<(unsigned)((nblk - 1) * R), row_threads(plane), 0,
-                   stream>>>(y, s.nnc, plane, R, blk);
-  return (int)cudaGetLastError();
+  return launch_seams<T>(y, (int64_t)(nblk - 1) * R, s.nnc, s.nnc / ngl, R,
+                         blk, stream);
 }
 
 }  // namespace
@@ -89,6 +128,30 @@ int pn_plainmm_f64(const void* t, const void* matT, void* y, int64_t M,
                    int K, int N, void* stream) {
   return launch_gemm<double>((const double*)t, (const double*)matT,
                              (double*)y, M, K, N, (cudaStream_t)stream);
+}
+
+// The plan launch_gemm follows for these operands: out[0] = bytes per
+// cp.async (16, or the element size for the narrow loader), out[1..2] = the
+// CTA tile (rows, columns). elem_bytes is 4 or 8; returns 0, or
+// cudaErrorInvalidValue for another size. Launches nothing.
+int pn_gemm_plan(const void* t, const void* matT, const void* y, int K,
+                 int N, int elem_bytes, int* out) {
+  auto tile = [&](auto cfg) {
+    out[1] = decltype(cfg)::BM;
+    out[2] = decltype(cfg)::BN;
+    return 0;
+  };
+  if (elem_bytes == 4) {
+    out[0] = gemm_loader_bytes((const float*)t, (const float*)matT,
+                               (const float*)y, K, N);
+    return with_gemm_tile<float>(N, tile);
+  }
+  if (elem_bytes == 8) {
+    out[0] = gemm_loader_bytes((const double*)t, (const double*)matT,
+                               (const double*)y, K, N);
+    return with_gemm_tile<double>(N, tile);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // u: (E, nnc_out) scratch, read only when do_rolls != 0

@@ -8,7 +8,9 @@
 //
 // Three launches on the caller's stream (the first two from
 // fused_common.cuh, shared with the decomposition kernels K2-K4):
-//   1. gemm_kernel: u = t @ matT, a tiled FFMA GEMM.
+//   1. gemm_kernel: u = t @ matT; f32 on FFMA (64x64 or 64x128 CTA tiles,
+//      8x4 outputs per thread, a cp.async ring), f64 on the FP64 tensor
+//      cores (DMMA m16n8k16).
 //   2. dss_kernel (one block per element row): y[e, col] = sum of u over the
 //      up to 2^dim slots that hold (e, col)'s global node, found by index
 //      arithmetic (no gather table), in one canonical order so that every
@@ -18,11 +20,15 @@
 //      1..dim-1 only (the cross-slab adds of a sharded run).
 //
 // What bounds it on an H100: at 24^3 ngl=4 the (192, 192) apply is about
-// 1.0 GFLOP of FFMA against about 21 MB of HBM traffic (t, u, y, each
-// 10.6 MB, with matT cached), so a simple kernel is bound by memory traffic
-// and launch overhead, not by the 67 TFLOP/s of FP32. The two-pass form
-// writes and re-reads u once; fusing the passes (a CTA per axis-0 tile with
-// recomputed halo planes) removes that round trip and is later work.
+// 1.0 GFLOP against about 42 MB of HBM traffic (the GEMM reads t and writes
+// u, the DSS reads u and writes y, 10.6 MB each; matT stays in L2). The
+// GEMM is bound by FFMA issue in f32 and by DMMA issue and HBM in f64 (its
+// design is in fused_common.cuh's head); the DSS pass moves its 21 MB at
+// ~0.36 TB/s, far below the 3.35 TB/s roof, and is now the larger part of
+// the apply.
+// The two-pass form writes and re-reads u once; fusing the passes (a CTA per
+// axis-0 tile with recomputed halo planes) removes that round trip and is
+// later work.
 //
 // All element/slot offsets are 64-bit.
 

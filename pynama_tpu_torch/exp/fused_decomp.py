@@ -5,8 +5,9 @@ kernels become hand-written CUDA C++ kernels (`csrc/decomp.cu`, built from
 K1's own GEMM and DSS in `csrc/fused_common.cuh`):
 
 - ``plainmm_apply(t, matT, block)`` (K4, replaces `_plainmm_kernel`):
-  ``t @ matT``, K1's FFMA GEMM alone. ``block`` (rows per TPU grid step)
-  must divide E and tiles nothing on Hopper.
+  ``t @ matT``, K1's GEMM alone (FFMA in float32, FP64 tensor cores in
+  float64). ``block`` (rows per TPU grid step) must divide E and tiles
+  nothing on Hopper; ``gemm_plan`` reports the loader and tile it takes.
 - ``variant_apply(t, matT, nelem, ngl, ncomp_out, block, do_rolls=True)``
   (K3, replaces `_variant_kernel`): with ``do_rolls`` it is K1's y (GEMM +
   DSS, no ``bnd``); without, ``t @ matT`` plus the axis-0 adds at the
@@ -28,7 +29,7 @@ rounds, and prints the decomposition:
 
     fused - nodss      = the DSS pass (less the seam adds)
     nodss - plainmm    = the seam adds
-    plainmm - torch_mm = the hand FFMA GEMM against cuBLAS
+    plainmm - torch_mm = the hand GEMM against cuBLAS
 
     python -m pynama_tpu_torch.exp.fused_decomp [ne ngl] [--block B]
         [--nit N] [--rounds R] [--device cuda|cpu]
@@ -84,7 +85,7 @@ def plainmm_apply_ref(t: torch.Tensor, matT: torch.Tensor, block: int):
 
 
 def plainmm_apply(t: torch.Tensor, matT: torch.Tensor, block: int):
-    """t @ matT through K1's FFMA GEMM; CPU tensors take the plain version."""
+    """t @ matT through K1's GEMM; CPU tensors take the plain version."""
     _check_mm(t, matT, block)
     if t.device.type == "cpu":
         return plainmm_apply_ref(t, matT, block)
@@ -99,6 +100,22 @@ def plainmm_apply(t: torch.Tensor, matT: torch.Tensor, block: int):
 
 
 plainmm_apply.launches = 0
+
+
+def gemm_plan(t: torch.Tensor, matT: torch.Tensor, y: torch.Tensor) -> dict:
+    """The loader and tile the GEMM of K1, K3 and K4 takes for y = t @ matT
+    with these tensors: ``{"loader_bytes": 16 or the element size,
+    "tile": [rows, columns]}``. Asks the kernel library (needs nvcc) and
+    launches nothing."""
+    import ctypes
+    from pynama_tpu_torch.ops._build import load_library
+    out = (ctypes.c_int * 3)()
+    rc = load_library().pn_gemm_plan(
+        t.data_ptr(), matT.data_ptr(), y.data_ptr(), int(t.shape[1]),
+        int(matT.shape[1]), t.element_size(), out)
+    if rc != 0:
+        raise ValueError(f"no GEMM plan for {t.dtype}")
+    return {"loader_bytes": out[0], "tile": [out[1], out[2]]}
 
 
 # ------------------------------------------------------------- K3 variant

@@ -54,9 +54,12 @@ _VARIANT = [_VP, _VP, _VP, _VP, _I64, _I32, _I32, _I32, _I32,
 # t, matT, u, y, E, nnc_in, ngl, ncomp_out, dim, ne0, ne1, ne2, stream
 _FUSED3X = [_VP, _VP, _VP, _VP, _I64, _I32, _I32, _I32, _I32,
             _I32, _I32, _I32, _VP]
+# t, matT, y, K, N, elem_bytes, out (int[3]); launches nothing
+_GEMM_PLAN = [_VP, _VP, _VP, _I32, _I32, _I32, ctypes.POINTER(_I32)]
 SIGNATURES = {
     "pn_fused_apply_f32": _FUSED, "pn_fused_apply_f64": _FUSED,
     "pn_plainmm_f32": _PLAINMM, "pn_plainmm_f64": _PLAINMM,
+    "pn_gemm_plan": _GEMM_PLAN,
     "pn_variant_apply_f32": _VARIANT, "pn_variant_apply_f64": _VARIANT,
     "pn_fused3x_f32": _FUSED3X,
 }

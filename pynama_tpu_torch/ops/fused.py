@@ -7,15 +7,16 @@ no axis-0 adds), shape (2, prod(nelem[1:]), ngl**(dim-1) * ncomp_out).
 
 It replaces the Pallas kernel ``pynama_tpu/ops/fused.py::_fused_kernel``.
 On a CUDA tensor it launches the hand-written CUDA C++ kernel in
-``csrc/fused_apply.cu`` (an FFMA tiled GEMM, then an index-arithmetic DSS and
-the boundary planes; built by nvcc for sm_90a at first use, see
-``ops/_build.py``), on PyTorch's current stream. On a CPU tensor it runs
-``fused_apply_ref``, the plain PyTorch version. There is no fallback from
-the kernel to the plain version: a CUDA call launches the kernel or raises.
+``csrc/fused_apply.cu`` (a GEMM, FFMA in f32 and FP64 tensor cores in f64,
+then an index-arithmetic DSS and the boundary planes; built by nvcc for
+sm_90a at first use, see ``ops/_build.py``), on PyTorch's current stream. On
+a CPU tensor it runs ``fused_apply_ref``, the plain PyTorch version. There
+is no fallback from the kernel to the plain version: a CUDA call launches
+the kernel or raises.
 
 What bounds it on an H100: at 24^3 ngl=4 one K apply is about 1.0 GFLOP
-of FFMA against about 21 MB of HBM traffic, so this simple two-pass kernel
-is bound by memory traffic and launch overhead (details in the .cu file).
+against about 42 MB of HBM traffic; the GEMM is bound by FFMA issue, the
+DSS pass by its per-slot work (details in the .cu files).
 
 ``fused_apply.launches`` counts the kernel launches made by this process
 (one per call on a CUDA tensor; plain-version calls do not count).

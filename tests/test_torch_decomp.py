@@ -135,16 +135,25 @@ def test_variant_with_rolls_is_fused_apply(nelem, ngl, cin, cout):
     assert _dup_consistent(y, nelem, ngl, cout)
 
 
-@pytest.mark.parametrize("block", BLOCKS)
-def test_variant_seams_only(block):
+# 3D 3->6, and 2D planes of 3 * ncomp values (6, 9) and 4 * 3 (12)
+SEAM_2D = [((4, 3), 3, 1, 2), ((4, 5), 3, 2, 3), ((4, 2), 4, 3, 3)]
+SEAM_CASES = (
+    [pytest.param(CONFIGS[1], b, id=str(b)) for b in BLOCKS]
+    + [pytest.param(c, b, id=f"2d-{c[0][0]}x{c[0][1]}-ngl{c[1]}-{c[2]}to"
+                    f"{c[3]}-{b}") for c in SEAM_2D for b in BLOCKS])
+
+
+@pytest.mark.parametrize("config,block", SEAM_CASES)
+def test_variant_seams_only(config, block):
     """do_rolls=False: u = t @ m except at the interior block seams, where
     both slots of each pair hold the same bits, u[lo] + u[hi]."""
-    nelem, ngl, cin, cout = CONFIGS[1]
+    nelem, ngl, cin, cout = config
     t, m = _inputs(nelem, ngl, cin, cout, 9)
     y = D.variant_apply(torch.as_tensor(t), torch.as_tensor(m), nelem, ngl,
                         cout, block, do_rolls=False).numpy()
     ne0, R = nelem[0], int(np.prod(nelem[1:]))
-    nnc, plane = ngl ** 3 * cout, ngl ** 2 * cout
+    dim = len(nelem)
+    nnc, plane = ngl ** dim * cout, ngl ** (dim - 1) * cout
     want = (t @ m).reshape(ne0, R, nnc)
     for s in range(1, ne0 // block):
         lo, hi = s * block - 1, s * block
