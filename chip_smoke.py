@@ -13,18 +13,25 @@ exits non-zero without the final result line:
 3. kernels  fused_apply's CUDA kernel against its plain PyTorch version on
             the card, at every operator shape of the engine (3D ngl=4 24^3,
             3D ngl=7 8^3, 2D ngl=3 50x50, degenerate extents), float32 and
-            float64: max|err|/max|ref| <= 1e-5 (f32) / 1e-12 (f64), and every
-            duplicated slot bitwise equal; kernel and plain times at the
-            24^3 ngl=4 shapes: CUDA-event medians around single calls
-            (`ms`, host enqueue included) and device time per call from
-            torch.profiler over 20 calls (`device_us`, every kernel the call
-            launches), which ranks kernel against plain
+            float64: y and bnd each within max|err|/max|ref| <= 1e-5 (f32) /
+            1e-12 (f64), and every duplicated slot bitwise equal; its DSS
+            pass alone (dss_pass) on a random u bitwise equal to the plain
+            DSS of that u, y and bnd, and its plan equal to
+            ops.fused.dss_tile_plan's; kernel and plain times at the 24^3
+            ngl=4 shapes: CUDA-event medians around single calls (`ms`, host
+            enqueue included) and device time per call from torch.profiler
+            over 20 calls (`device_us`, every kernel the call launches;
+            `dss_device_us`, the DSS pass's share), which ranks kernel
+            against plain, beside the bound (`bound_ms`); then the DSS pass
+            at 24^3 ngl=4 over chunk lengths DSS_CHUNKS (device time, each
+            checked bitwise)
 3b. decomp  the decomposition kernels against their plain versions at the
             same shapes: K4 plainmm_apply and K3 variant_apply (blocks 1, 2
             and ne0, both do_rolls; f32 and f64, same limits; duplicate
             slots or seam pairs bitwise equal), K2 fused3x_apply (f32, same
             limit, duplicate slots bitwise equal, <= 5e-5 from fused_apply);
-            kernel and plain times at the 24^3 ngl=4 shapes; a GEMM sweep
+            kernel and plain times at the 24^3 ngl=4 shapes (K4 also
+            beside cuBLAS, `library_ms`); a GEMM sweep
             of plainmm_apply over M in GEMM_M and (K, N) in GEMM_KN plus two
             misaligned views, f32 and f64, printing each case's loader and
             tile and failing unless both loaders ran in both dtypes; then the
@@ -42,7 +49,10 @@ exits non-zero without the final result line:
 
 The last three lines are the card's name and power limit (nvidia-smi), the
 record of the four kernels as JSON and the result line
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}. A kernel's `bound_ms` is the larger of the
+operations of its function over the card's peak rate for their type and its
+bytes (each input read once, each output written once) over the memory rate,
+from the H100 SXM data-sheet peaks below.
 """
 from __future__ import annotations
 
@@ -67,6 +77,13 @@ DEVICE_CALLS = 20    # calls per profiled device time
 GEMM_M = [1, 63, 64, 127, 129, 13824]
 GEMM_KN = [(9, 18), (27, 18), (192, 192), (192, 384), (384, 192),
            (1029, 2058)]
+# chunk lengths of the DSS sweep (0: make_dss_plan's rule)
+DSS_CHUNKS = [0, 2, 3, 4, 6, 8, 12, 24]
+# H100 SXM peaks (NVIDIA's data sheet, dense): HBM3 bytes/s; FLOP/s of FP32
+# outside the tensor cores (FFMA), of the FP64 tensor cores (DMMA) and of
+# bf16 on the tensor cores
+HBM_BPS = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 67e12, "bfloat16": 989e12}
 
 # (label, nelem, ngl, [(ncomp_in, ncomp_out), ...]) — every (nnc_in,
 # nnc_out) pair the engine applies: K v->v, Rw w->v, curl v->w, srt v->s,
@@ -79,6 +96,23 @@ SHAPES = [
     ("3d-ngl4-4x1x2", (4, 1, 2), 4, [(3, 3)]),
     ("3d-ngl2-2^3", (2, 2, 2), 2, [(3, 3)]),
 ]
+
+
+def _bound(flops, peak, nbytes):
+    """(bound_ms, bound_by): the larger of flops over the peak rate and
+    nbytes over the memory rate."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BPS * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _gemm_bound(E, K, N, dtype_name, nbytes_out_extra=0, products=1,
+                peak=None):
+    """Bound of y = f(t @ matT) with t (E, K), matT (K, N), y (E, N) and
+    nbytes_out_extra more bytes of output, products GEMMs of its FLOPs."""
+    eb = 8 if dtype_name == "float64" else 4
+    return _bound(products * 2 * E * K * N,
+                  peak or PEAK_FLOPS[dtype_name],
+                  (E * K + K * N + E * N) * eb + nbytes_out_extra)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -202,7 +236,9 @@ def _timed_pair(torch, kernel, plain):
 
 def phase_kernels(torch, dev):
     from pynama_tpu_torch.mesh import BoxMesh
-    from pynama_tpu_torch.ops.fused import fused_apply, fused_apply_ref
+    from pynama_tpu_torch.ops.fused import (dss_library_plan, dss_pass,
+                                            dss_ref, dss_tile_plan,
+                                            fused_apply, fused_apply_ref)
 
     record = None
     seed = 0
@@ -228,23 +264,87 @@ def phase_kernels(torch, dev):
                 err_y = float((y - yr).abs().max())
                 err_b = float((bnd - br).abs().max())
                 spread = _dup_spread(torch, y, mesh.cell_nodes, cout)
-                rel = max(err_y, err_b) / scale
-                row = dict(shape=label, dtype=str(dtype).split(".")[-1],
+                # the DSS pass alone: bitwise the plain DSS of the same u
+                u = torch.as_tensor(rng.standard_normal((E, nn * cout)),
+                                    dtype=dtype, device=dev)
+                yd, bd = dss_pass(u, nelem, ngl, cout)
+                ydr, bdr = dss_ref(u, nelem, ngl, cout)
+                bitwise = torch.equal(yd, ydr) and torch.equal(bd, bdr)
+                eb = t.element_size()
+                plan = dss_library_plan(nelem, ngl, cout, eb)
+                want = dss_tile_plan(nelem, ngl, cout, eb)
+                dname = str(dtype).split(".")[-1]
+                row = dict(shape=label, dtype=dname,
                            nnc_in=nn * cin, nnc_out=nn * cout,
                            max_abs_err=err_y, bnd_abs_err=err_b,
-                           rel_err=rel, limit=limit, dup_spread=spread)
+                           rel_err=err_y / scale, bnd_rel_err=err_b / scale,
+                           limit=limit, dup_spread=spread,
+                           dss_bitwise=bitwise,
+                           dss_plan=[plan[k] for k in ("C", "nch", "threads",
+                                                       "tile_bytes",
+                                                       "copy_bytes")])
                 if label == "3d-ngl4-24^3":
                     row.update(_timed_pair(
                         torch, lambda: fused_apply(t, m, nelem, ngl, cout),
                         lambda: fused_apply_ref(t, m, nelem, ngl, cout)))
+                    row["dss_device_us"] = sum(
+                        v for k, v in row["device_kernels"].items()
+                        if "dss" in k)
+                    R, plane = E // nelem[0], nn * cout // ngl
+                    row["bound_ms"], row["bound_by"] = _gemm_bound(
+                        E, nn * cin, nn * cout, dname, 2 * R * plane * eb)
+                    row["dss_bound_us"] = 1e6 * (
+                        2 * E * nn * cout + 2 * R * plane) * eb / HBM_BPS
+                    row["library_ms"] = None
                     if dtype == torch.float32 and (cin, cout) == (3, 3):
                         record = row
                 emit("kernels", **row)
-                check(rel <= limit, f"fused_apply {label} {row['dtype']} "
-                      f"{nn * cin}->{nn * cout}: rel err {rel:.3e} > {limit}")
-                check(spread == 0.0, f"fused_apply {label} {row['dtype']}: "
-                      f"duplicate slots differ by {spread:.3e}")
+                what = f"fused_apply {label} {dname} {nn * cin}->{nn * cout}"
+                check(err_y / scale <= limit, f"{what}: rel err "
+                      f"{err_y / scale:.3e} > {limit}")
+                check(err_b / scale <= limit, f"{what}: bnd rel err "
+                      f"{err_b / scale:.3e} > {limit}")
+                check(spread == 0.0, f"{what}: duplicate slots differ by "
+                      f"{spread:.3e}")
+                check(bitwise, f"{what}: the DSS pass is not bitwise the "
+                      "plain DSS")
+                check(all(plan[k] == want[k] for k in plan),
+                      f"{what}: DSS plan {plan} != dss_tile_plan's")
+    _dss_sweep(torch, dev)
     return record
+
+
+def _dss_sweep(torch, dev):
+    """The DSS pass alone at 24^3 ngl=4 (192 and 384 columns, f32 and
+    f64) over the chunk lengths DSS_CHUNKS: device time per call, each
+    checked bitwise against the plain DSS."""
+    from pynama_tpu_torch.ops.fused import (dss_library_plan, dss_pass,
+                                            dss_ref)
+    nelem, ngl = (24, 24, 24), 4
+    E = int(np.prod(nelem))
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        for ncomp in (3, 6):
+            nnc = ngl ** 3 * ncomp
+            rng = np.random.default_rng(700 + ncomp)
+            u = torch.as_tensor(rng.standard_normal((E, nnc)), dtype=dtype,
+                                device=dev)
+            yr, br = dss_ref(u, nelem, ngl, ncomp)
+            rows = []
+            for chunk in DSS_CHUNKS:
+                y, b = dss_pass(u, nelem, ngl, ncomp, chunk)
+                check(torch.equal(y, yr) and torch.equal(b, br),
+                      f"DSS pass {dname} {nnc} chunk {chunk}: not bitwise "
+                      "the plain DSS")
+                plan = dss_library_plan(nelem, ngl, ncomp,
+                                        u.element_size(), chunk)
+                us, _ = _device_us(
+                    torch, lambda: dss_pass(u, nelem, ngl, ncomp, chunk))
+                rows.append([chunk, plan["C"], plan["threads"],
+                             plan["tile_bytes"], us])
+            emit("dss_sweep", dtype=dname, nnc=nnc,
+                 cases="[chunk, C, threads, tile_bytes, device_us]",
+                 rows=rows)
 
 
 def _seam_pairs_equal(torch, y, nelem, ngl, blk):
@@ -306,6 +406,12 @@ def _decomp_checks(torch, dev):
                     row.update(_timed_pair(
                         torch, lambda: D.plainmm_apply(t, m, R),
                         lambda: D.plainmm_apply_ref(t, m, R)))
+                    row["bound_ms"], row["bound_by"] = _gemm_bound(
+                        E, nn * cin, nn * cout, dname)
+                    # one PyTorch call of the same function: cuBLAS
+                    row["library_ms"] = _median_ms(torch, lambda: t @ m)
+                    row["library_device_us"] = _device_us(
+                        torch, lambda: t @ m)[0]
                     if dtype == torch.float32 and (cin, cout) == (3, 3):
                         record["plainmm"] = row
                 # K3: both do_rolls, every block
@@ -332,6 +438,9 @@ def _decomp_checks(torch, dev):
                             row.update(_timed_pair(
                                 torch, lambda: D.variant_apply(*args),
                                 lambda: D.variant_apply_ref(*args)))
+                            row["bound_ms"], row["bound_by"] = _gemm_bound(
+                                E, nn * cin, nn * cout, dname)
+                            row["library_ms"] = None
                             if dtype == torch.float32 and (cin, cout) \
                                     == (3, 3):
                                 record["variant"] = row
@@ -355,6 +464,11 @@ def _decomp_checks(torch, dev):
                                                         cout, 1),
                         lambda: M3.fused3x_apply_ref(t, m, nelem, ngl,
                                                      cout, 1)))
+                    # three bf16 products on the tensor cores
+                    row["bound_ms"], row["bound_by"] = _gemm_bound(
+                        E, nn * cin, nn * cout, dname, products=3,
+                        peak=PEAK_FLOPS["bfloat16"])
+                    row["library_ms"] = None
                     if (cin, cout) == (3, 3):
                         record["fused3x"] = row
             for name, kr in rows.items():
@@ -571,7 +685,8 @@ def main() -> int:
         "name": name, "route": "cuda",
         "source": f"pynama_tpu_torch/csrc/{src}", "replaces": replaces,
         "launches": r["launches"], "max_abs_err": r["max_abs_err"],
-        "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "device_us": r["device_us"], "plain_device_us": r["plain_device_us"]}
         for name, src, replaces, r in kernels]}))
     print(json.dumps({"ok": True, "device": {

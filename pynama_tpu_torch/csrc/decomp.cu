@@ -11,8 +11,8 @@
 //   plainmm          gemm_kernel alone (fused_common.cuh), y = t @ matT.
 //                    The TPU's `block` (rows per grid step) has no Hopper
 //                    meaning: the GEMM's tile is chosen by launch_gemm.
-//   variant, rolls   gemm_kernel + dss_kernel, K1 without bnd_kernel; y is
-//                    bitwise K1's y.
+//   variant, rolls   gemm_kernel + dss_kernel, K1 without the bnd planes; y
+//                    is bitwise K1's y.
 //   variant, no rolls gemm_kernel into y, then seam_kernel: at each interior
 //                    block seam s*blk (s = 1..nblk-1) and each r < R, the
 //                    last axis-0 plane of element row (s*blk-1)*R + r and
@@ -102,7 +102,7 @@ int launch_variant(const T* t, const T* matT, T* u, T* y, int64_t E,
   if (do_rolls) {
     const int err = launch_gemm<T>(t, matT, u, E, nnc_in, s.nnc, stream);
     if (err != 0) return err;
-    return launch_dss<T>(u, y, E, s, stream);
+    return launch_dss<T>(u, y, nullptr, s, stream);
   }
   const int err = launch_gemm<T>(t, matT, y, E, nnc_in, s.nnc, stream);
   if (err != 0) return err;

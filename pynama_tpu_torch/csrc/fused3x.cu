@@ -188,7 +188,7 @@ int pn_fused3x_f32(const void* t, const void* matT, void* u, void* y,
       (const float*)t, (const float*)matT, (float*)u, E, nnc_in, s.nnc);
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  return launch_dss<float>((const float*)u, (float*)y, E, s, st);
+  return launch_dss<float>((const float*)u, (float*)y, nullptr, s, st);
 }
 
 }  // extern "C"

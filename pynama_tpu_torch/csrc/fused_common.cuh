@@ -1,5 +1,5 @@
 // Shared pieces of the box-mesh apply kernels: the GEMM, the mesh shape, and
-// the index-arithmetic DSS. fused_apply.cu (K1), decomp.cu (K3, K4) and
+// the tiled DSS pass. fused_apply.cu (K1), decomp.cu (K3, K4) and
 // fused3x.cu (K2) include this header, so every kernel that runs "the GEMM"
 // or "the DSS" runs the same code, and a difference between two of them in a
 // decomposition is the part that differs, not a copy.
@@ -434,24 +434,30 @@ inline int gemm_loader_bytes(const T* A, const T* B, const T* C, int K,
                                                         : (int)sizeof(T);
 }
 
+// Above 48 KB of dynamic shared memory a kernel must opt in, on each device;
+// opted[dev] holds the most this kernel has been allowed there so far (the
+// caller keeps one array per kernel).
+template <class K>
+inline int allow_smem(K kernel, int bytes, int (&opted)[64]) {
+  if (bytes <= 48 * 1024) return 0;
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err != 0) return err;
+  if (dev < 64 && opted[dev] >= bytes) return 0;
+  err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == 0 && dev < 64) opted[dev] = bytes;
+  return err;
+}
+
 template <typename T, class Cfg, int VEC>
 int launch_gemm_cfg(const T* A, const T* B, T* C, int64_t M, int K, int N,
                     cudaStream_t stream) {
   using S = GemmSmem<T, Cfg>;
   auto kernel = gemm_kernel<T, Cfg, VEC>;
-  if constexpr (S::BYTES > 48 * 1024) {
-    // above 48 KB a kernel must opt in, once per device
-    static bool opted[64] = {};
-    int dev = 0;
-    int err = (int)cudaGetDevice(&dev);
-    if (err != 0) return err;
-    if (dev >= 64 || !opted[dev]) {
-      err = (int)cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
-      if (err != 0) return err;
-      if (dev < 64) opted[dev] = true;
-    }
-  }
+  static int opted[64] = {};
+  const int err = allow_smem(kernel, S::BYTES, opted);
+  if (err != 0) return err;
   const int64_t blocks =
       (M + Cfg::BM - 1) / Cfg::BM * ((N + Cfg::BN - 1) / Cfg::BN);
   kernel<<<(unsigned)blocks, Cfg::THREADS, S::BYTES, stream>>>(A, B, C, M,
@@ -473,19 +479,61 @@ int launch_gemm(const T* A, const T* B, T* C, int64_t M, int K, int N,
   });
 }
 
+// ------------------------------------------------------------------ the DSS
+//
+// y = DSS(u): every slot gets the sum of the up to 2^dim copies of its
+// global node, in one canonical order that does not depend on which slot
+// computes it: pairs along axis 0 first, then pairs of those along axis 1,
+// then axis 2, the lower element first in each pair. That is the order of
+// the axis-by-axis plain DSS (ops/local.py::dss_box), so every duplicate
+// slot is bitwise equal and y is bitwise the plain DSS of the same u. bnd,
+// when asked for, holds the first plane along the mesh's axis 0 of the first
+// axis-0 slice and the last plane of the last slice, summed over axes
+// 1..dim-1 only (the raw planes the sharded path exchanges).
+//
+// What bounds it on an H100: it reads u once and writes y once (at 24^3
+// ngl=4 f32 with 192 columns, 10.6 MB each way: 6.3 us at 3.35 TB/s), with
+// a few adds per slot. A thread per slot that decodes its element and node
+// and gathers its copies from global memory is bound by instructions and
+// latency instead (0.36 TB/s). This pass works on a tile in shared memory:
+//   - The mesh is viewed as 3D with axis 2 fastest; a 2D mesh gets a
+//     leading axis of one element with one node. A CTA owns a chunk of C
+//     consecutive elements along axis 2 at fixed (e0, e1), whose rows of u
+//     are contiguous.
+//   - It stages with cp.async (16 bytes a copy where a line of nn2 * ncomp
+//     entries is a multiple of 16 bytes and u, y, bnd are aligned) the 9
+//     slabs of its neighbourhood (e0 + i0, e1 + i1), each for the elements
+//     c0 - 1 .. c0 + C (a halo element at each end), and of each element
+//     only the nodes it shares with the chunk: all of them in the own slab,
+//     the facing a0 face in slabs i0 != 0, the facing a1 face in slabs
+//     i1 != 0, the edge in the diagonal ones. The neighbour slabs are other
+//     CTAs' own rows, so they are L2 hits.
+//   - It then sums in the tile, one axis per pass, a barrier between: axis
+//     0 (the own a0 faces add slabs (+-1, 0), and the a0 faces of slabs
+//     (0, +-1) add the diagonal ones), axis 1 (the own a1 faces add slabs
+//     (0, +-1)), axis 2 (each pair of a2 faces of neighbouring elements).
+//     Each pass adds the partner's value, which already holds the sums of
+//     the earlier axes, so a slot ends with the canonical tree. An entry is
+//     in at most one pair per pass: no races.
+//   - A pass is one loop over (element, face entry) in which a thread keeps
+//     its face entry and steps over elements (dss_loop), with the thread
+//     mapping and divisors computed on the host: an add is two loads, an
+//     add and a store. (Gathering each slot's 8 possible copies from the
+//     tile with predicated loads costs ~60 instructions a slot, and
+//     runtime divisions per loop cost more than the adds.)
+//   - y is the own slab's chunk rows, copied out with 16-byte stores. A node
+//     of the mesh's first (last) axis-0 plane has no axis-0 partner, so its
+//     y is its bnd: the CTAs on those slices copy bnd from the same tile,
+//     and bnd costs no launch of its own.
+
 // Element and node indices fit in 32 bits (the wrappers check E < 2^31);
-// only offsets into u/y are 64-bit. 32-bit decoding matters: a 64-bit
-// integer division is a long software sequence on the GPU, and an earlier
-// 1-D form that decoded a flat 64-bit index per slot made the DSS pass as
-// slow as the GEMM.
+// only offsets into u, y and bnd are 64-bit.
 struct MeshShape {
   int dim;
   int ngl;
   int ncomp;
-  int nnc;          // ngl^dim * ncomp
-  int ne[3];        // elements per axis (unused entries 1)
-  int estride[3];   // element-row stride per axis (row-major)
-  int nstride[3];   // local-node stride per axis (axis 0 slowest)
+  int nnc;      // ngl^dim * ncomp
+  int ne[3];    // elements per axis (unused entries 1)
 };
 
 inline MeshShape make_mesh_shape(int ngl, int ncomp_out, int dim,
@@ -498,111 +546,348 @@ inline MeshShape make_mesh_shape(int ngl, int ncomp_out, int dim,
   for (int d = 0; d < dim; ++d) nn *= ngl;
   s.nnc = nn * ncomp_out;
   for (int d = 0; d < 3; ++d) s.ne[d] = d < dim ? nelem[d] : 1;
-  int es = 1;
-  int ns = 1;
-  for (int d = 2; d >= 0; --d) {
-    if (d >= dim) {
-      s.estride[d] = 1;
-      s.nstride[d] = 1;
-      continue;
-    }
-    s.estride[d] = es;
-    es *= s.ne[d];
-    s.nstride[d] = ns;
-    ns *= ngl;
-  }
   return s;
 }
 
-// Sum of the copies of slot (e, col) over the axes d >= first_axis, in the
-// canonical order: pairs along the lowest axis innermost, lower element
-// first in each pair. `u` is (E, nnc).
-template <typename T>
-__device__ __forceinline__ T slot_sum(const T* __restrict__ u,
-                                      const MeshShape& s, int e, int col,
-                                      int first_axis) {
-  const int node = col / s.ncomp;
-  const int comp = col - node * s.ncomp;
-  // per axis: offset (in entries of u) of the lower and the higher copy;
-  // both equal the slot's own position where the axis has no partner
-  int64_t lo[3], hi[3];
-  bool shared[3];
-#pragma unroll
+// A CTA has a thread per column, whole warps, at least 64 and at most
+// DSS_MAX_THREADS. The chunk is the longest run of a row whose tile leaves
+// room for DSS_SM_THREADS threads per SM (the SM's DSS_SM_SMEM bytes of
+// shared memory, less 1 KB per CTA, over the tile). Measured on an H100
+// (chip_smoke.py's DSS sweep): fewer resident threads leave the passes'
+// latency exposed, and shorter chunks stage more halo.
+constexpr int DSS_SM_SMEM = 228 * 1024;
+constexpr int DSS_MAX_TILE = 227 * 1024;
+constexpr int DSS_SM_THREADS = 768;
+constexpr int DSS_MAX_THREADS = 512;
+
+// x / d for 0 <= x with x d < 2^32, as umulhi(x, m), m = floor((2^32 - 1)
+// / d) + 1 (m = 0 stands for d = 1): the divisors of the DSS pass are
+// known on the host, and a runtime division is ~20 instructions.
+struct DssDiv {
+  int d;
+  unsigned m;
+};
+
+inline DssDiv make_dss_div(int d) {
+  return {d, d <= 1 ? 0u : 0xFFFFFFFFu / (unsigned)d + 1u};
+}
+
+__device__ __forceinline__ int dss_div(int x, DssDiv v) {
+  return v.m ? (int)__umulhi((unsigned)x, v.m) : x;
+}
+
+// A loop over (element, entry j < F) of one pass (dss_loop): a thread takes
+// j = tid % F and every per-th element from tid / F, per = threads / F (0
+// when F > threads). F = 0: the pass has nothing to do.
+struct DssLoop {
+  DssDiv F;
+  int per;
+};
+
+inline DssLoop make_dss_loop(int F, int threads) {
+  return {make_dss_div(F), F > 0 && F <= threads ? threads / F : 0};
+}
+
+// How the DSS pass covers one mesh shape (ops/fused.py::dss_tile_plan
+// mirrors it). Slab 3 (i0 + 1) + (i1 + 1) holds C + 2 elements of sz[]
+// entries each, from base[] on; an element of a slab is its lines (fixed
+// a0, a1; `line` entries over a2 and comp) with a0 slowest.
+struct DssPlan {
+  int ne[3], nn[3];    // the 3D view: elements, nodes per element, per axis
+  int nc, nnc, line;   // components; entries per element; per line
+  int fa;              // view axis of the mesh's axis 0
+  int R, plane;        // bnd: rows per axis-0 slice, entries per plane
+  int C, nch;          // elements per chunk; chunks per row
+  int sz[9], base[9];
+  int tile;            // entries of the tile
+  int threads;
+  // the loops: staging of the neighbour slabs, the axis passes, bnd
+  DssLoop stage, pass0, pass1, pass2, bndl;
+  DssDiv line_d, nc_d, cpr_d;   // by line, by ncomp, by line / vec
+};
+
+// vec: entries per copy; chunk > 0 forces the chunk length (a measurement
+// knob), 0 takes the rule
+inline DssPlan make_dss_plan(const MeshShape& s, int elem_bytes, int vec,
+                             int chunk) {
+  DssPlan p;
+  const int lead = 3 - s.dim;
   for (int d = 0; d < 3; ++d) {
-    lo[d] = 0;
-    hi[d] = 0;
-    shared[d] = false;
-    if (d >= s.dim) continue;
-    const int e_d = (e / s.estride[d]) % s.ne[d];
-    const int a_d = (node / s.nstride[d]) % s.ngl;
-    const int64_t elem_step = (int64_t)s.estride[d] * s.nnc;
-    const int64_t node_step = (int64_t)s.nstride[d] * s.ncomp;
-    const int64_t own = e_d * elem_step + a_d * node_step;
-    lo[d] = own;
-    hi[d] = own;
-    if (d < first_axis) continue;
-    if (a_d == 0 && e_d > 0) {
-      // partner: element e_d - 1 at a_d = N-1 (the lower copy)
-      shared[d] = true;
-      lo[d] = (e_d - 1) * elem_step + (int64_t)(s.ngl - 1) * node_step;
-    } else if (a_d == s.ngl - 1 && e_d < s.ne[d] - 1) {
-      // partner: element e_d + 1 at a_d = 0 (the higher copy)
-      shared[d] = true;
-      hi[d] = (e_d + 1) * elem_step;
+    p.ne[d] = d < lead ? 1 : s.ne[d - lead];
+    p.nn[d] = d < lead ? 1 : s.ngl;
+  }
+  p.nc = s.ncomp;
+  p.nnc = s.nnc;
+  p.line = s.ngl * s.ncomp;
+  p.fa = lead;
+  p.R = (lead == 0 ? p.ne[1] : 1) * p.ne[2];
+  p.plane = s.nnc / s.ngl;
+  int per_elem = 0;
+  for (int i0 = -1; i0 <= 1; ++i0)
+    for (int i1 = -1; i1 <= 1; ++i1) {
+      // a slab whose neighbour no CTA has takes no room
+      const bool some = (i0 == 0 || p.ne[0] > 1) && (i1 == 0 || p.ne[1] > 1);
+      const int n = some ? (i0 ? 1 : p.nn[0]) * (i1 ? 1 : p.nn[1]) * p.line
+                         : 0;
+      p.sz[3 * (i0 + 1) + (i1 + 1)] = n;
+      per_elem += n;
+    }
+  const int t = (s.nnc + 31) / 32 * 32;
+  p.threads = t < 64 ? 64 : (t < DSS_MAX_THREADS ? t : DSS_MAX_THREADS);
+  const int ne2 = p.ne[2];
+  // too long: the tile does not fit, or leaves too few threads per SM
+  auto too_long = [&](int c) {
+    const int64_t bytes = (int64_t)(c + 2) * per_elem * elem_bytes;
+    return bytes > DSS_MAX_TILE ||
+           DSS_SM_SMEM / (bytes + 1024) * p.threads < DSS_SM_THREADS;
+  };
+  int C = ne2;
+  if (chunk > 0) {
+    C = chunk < ne2 ? chunk : ne2;
+  } else {
+    int nch = 1;
+    while (C > 1 && too_long(C)) {
+      ++nch;
+      C = (ne2 + nch - 1) / nch;
     }
   }
-  // v[m]: the copy that takes the higher element along every axis d whose
-  // bit is set in m (only shared axes may be set)
-  T v[8];
-#pragma unroll
-  for (int m = 0; m < 8; ++m) {
-    bool valid = true;
-    int64_t off = comp;
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      const bool bit = (m >> d) & 1;
-      if (bit && !shared[d]) valid = false;
-      off += bit ? hi[d] : lo[d];
+  p.C = C;
+  p.nch = (ne2 + C - 1) / C;
+  int off = 0;
+  for (int i = 0; i < 9; ++i) {
+    p.base[i] = off;
+    off += (C + 2) * p.sz[i];
+  }
+  p.tile = off;
+  int stage = 0;
+  for (int i = 0; i < 9; ++i) stage += i == 4 ? 0 : p.sz[i] / vec;
+  const int F0 = p.nn[1] * p.line, F1 = p.nn[0] * p.line;
+  const bool two0 = p.ne[0] > 1, two1 = p.ne[1] > 1;
+  p.stage = make_dss_loop(stage, p.threads);
+  p.pass0 = make_dss_loop(two0 ? 2 * F0 + (two1 ? 4 * p.line : 0) : 0,
+                          p.threads);
+  p.pass1 = make_dss_loop(two1 ? 2 * F1 : 0, p.threads);
+  p.pass2 = make_dss_loop(p.nn[0] * p.nn[1] * p.nc, p.threads);
+  p.bndl = make_dss_loop(p.plane / vec, p.threads);
+  p.line_d = make_dss_div(p.line);
+  p.nc_d = make_dss_div(p.nc);
+  p.cpr_d = make_dss_div(p.line / vec);
+  return p;
+}
+
+// Visits the entries (kk, j), kk in [k0, k1), j < F, of a pass: a thread
+// takes one j and every per-th element (DssLoop), so prep(j), which decodes
+// j, runs once per thread and fn(kk, prep(j)) is a few adds. With F >
+// threads a thread takes j = tid, tid + threads, ... of every element.
+template <class Prep, class Fn>
+__device__ __forceinline__ void dss_loop(const DssLoop& L, int k0, int k1,
+                                         Prep prep, Fn fn) {
+  const int B = blockDim.x, tid = threadIdx.x, F = L.F.d;
+  if (L.per > 0) {
+    const int kk0 = dss_div(tid, L.F);
+    if (kk0 >= L.per) return;
+    const auto st = prep(tid - kk0 * F);
+    for (int kk = k0 + kk0; kk < k1; kk += L.per) fn(kk, st);
+  } else {
+    for (int j = tid; j < F; j += B) {
+      const auto st = prep(j);
+      for (int kk = k0; kk < k1; ++kk) fn(kk, st);
     }
-    v[m] = valid ? u[off] : T(0);
   }
-  // reduce: axis-0 pairs first, then axis 1, then axis 2
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    if (!shared[d]) continue;
-#pragma unroll
-    for (int m = 0; m < 8; ++m)
-      if (!((m >> d) & 1)) v[m] = v[m] + v[m | (1 << d)];
+}
+
+template <typename T, int VEC>
+using DssVec = std::conditional_t<
+    VEC == 1, T,
+    std::conditional_t<std::is_same_v<T, float>, float4, double2>>;
+
+// a copy of the staging: VEC entries from u[src + kk nnc] to tile[dst + kk
+// dstep], where ok
+struct DssCopy {
+  int dst, dstep;
+  int64_t src;
+  bool ok;
+};
+
+// an add of a pass: tile[a + kk as] += tile[b + kk bs], where ok
+struct DssAdd {
+  int a, as, b, bs;
+  bool ok;
+};
+
+// One CTA per chunk: blockIdx.x = (e0 ne1 + e1) nch + chunk. Slab element
+// kk is mesh element c0 - 1 + kk of its row (chunk element kk - 1). VEC
+// entries per cp.async and per store.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(DSS_MAX_THREADS)
+dss_kernel(const T* __restrict__ u, T* __restrict__ y, T* __restrict__ bnd,
+           const DssPlan p) {
+  constexpr int BYTES = VEC * (int)sizeof(T);
+  using V = DssVec<T, VEC>;
+  extern __shared__ __align__(16) unsigned char dss_smem[];
+  T* tile = reinterpret_cast<T*>(dss_smem);
+  const int tid = threadIdx.x;
+  const int row = blockIdx.x / p.nch;   // e0 ne1 + e1
+  const int c0 = (blockIdx.x - row * p.nch) * p.C;
+  const int e0 = row / p.ne[1], e1 = row - e0 * p.ne[1];
+  const int C = p.C < p.ne[2] - c0 ? p.C : p.ne[2] - c0;
+  const int nnc = p.nnc, line = p.line, nn0 = p.nn[0], nn1 = p.nn[1];
+  const int F0 = nn1 * line, F1 = nn0 * line;   // an a0 plane; an a1 plane
+  const int own = p.base[4];
+  // the slab elements that exist, and the neighbours along axes 0 and 1
+  const int klo = c0 == 0 ? 1 : 0;
+  const int khi = C + 2 < p.ne[2] - c0 + 1 ? C + 2 : p.ne[2] - c0 + 1;
+  const bool lo0 = e0 > 0, hi0 = e0 < p.ne[0] - 1;
+  const bool lo1 = e1 > 0, hi1 = e1 < p.ne[1] - 1;
+  // entry of u where element 0 of the own slab would start
+  const int64_t first = ((int64_t)row * p.ne[2] + c0 - 1) * nnc;
+  auto add = [&](int kk, const DssAdd& d) {
+    if (!d.ok) return;
+    T* x = tile + d.a + kk * d.as;
+    *x = *x + tile[d.b + kk * d.bs];
+  };
+
+  // 1. stage: the own rows, one contiguous run; then the other slabs in one
+  // loop, slab by slab, in VEC-entry chunks of their elements
+  {
+    const T* src = u + (first + (int64_t)klo * nnc);
+    T* dst = tile + own + klo * nnc;
+    const int n = (khi - klo) * nnc / VEC;
+    for (int i = tid; i < n; i += blockDim.x)
+      cp_async<BYTES>(dst + i * VEC, src + i * VEC, BYTES);
   }
-  return v[0];
+  dss_loop(
+      p.stage, klo, khi,
+      [&](int j) {
+        int slab = 0;
+        for (int n = p.sz[0] / VEC; j >= n; n = p.sz[slab] / VEC) {
+          j -= n;
+          slab += slab == 3 ? 2 : 1;
+        }
+        const int i0 = slab / 3 - 1, i1 = slab % 3 - 1;
+        // an element of the slab: nn0 runs of a line, F0 apart in u, in
+        // slabs (0, +-1); one run of its sz entries in the others; from
+        // the facing a0 plane (i0 != 0) and a1 line (i1 != 0) on
+        const int len = i1 ? line : p.sz[slab];
+        const int r = i1 ? dss_div(j, p.cpr_d) : 0;
+        const int q = j * VEC - r * len;
+        return DssCopy{
+            p.base[slab] + r * len + q, p.sz[slab],
+            first + ((int64_t)i0 * p.ne[1] + i1) * p.ne[2] * nnc +
+                (i0 < 0 ? (nn0 - 1) * F0 : 0) +
+                (i1 < 0 ? (nn1 - 1) * line : 0) + r * F0 + q,
+            (i0 == 0 || (i0 < 0 ? lo0 : hi0)) &&
+                (i1 == 0 || (i1 < 0 ? lo1 : hi1))};
+      },
+      [&](int kk, const DssCopy& c) {
+        if (c.ok)
+          cp_async<BYTES>(tile + c.dst + kk * c.dstep,
+                          u + (c.src + (int64_t)kk * nnc), BYTES);
+      });
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // 2. axis 0: the own a0 faces add slabs (-1, 0) and (+1, 0); the a0 faces
+  // of slabs (0, +-1) add the diagonal slabs (their axis-1 partners' pairs)
+  dss_loop(
+      p.pass0, klo, khi,
+      [&](int j) {
+        if (j < 2 * F0) {
+          const bool up = j >= F0;
+          const int jj = j - (up ? F0 : 0);
+          return DssAdd{own + (up ? nn0 - 1 : 0) * F0 + jj, nnc,
+                        p.base[up ? 7 : 1] + jj, F0, up ? hi0 : lo0};
+        }
+        const int seg = dss_div(j - 2 * F0, p.line_d);   // 2 up1 + up0
+        const int jj = j - 2 * F0 - seg * line;
+        const bool up0 = seg & 1, up1 = seg >> 1;
+        return DssAdd{p.base[up1 ? 5 : 3] + (up0 ? nn0 - 1 : 0) * line + jj,
+                      F1, p.base[(up0 ? 6 : 0) + (up1 ? 2 : 0)] + jj, line,
+                      (up0 ? hi0 : lo0) && (up1 ? hi1 : lo1)};
+      },
+      add);
+  __syncthreads();
+
+  // 3. axis 1: the own a1 faces add slabs (0, -1) and (0, +1)
+  dss_loop(
+      p.pass1, klo, khi,
+      [&](int j) {
+        const bool up = j >= F1;
+        const int jj = j - (up ? F1 : 0);
+        const int a0 = dss_div(jj, p.line_d);
+        return DssAdd{own + (a0 * nn1 + (up ? nn1 - 1 : 0)) * line + jj -
+                          a0 * line,
+                      nnc, p.base[up ? 5 : 3] + jj, F1, up ? hi1 : lo1};
+      },
+      add);
+  __syncthreads();
+
+  // 4. axis 2: the pair (element kk - 1 at a2 = nn2 - 1, element kk at a2 =
+  // 0) of every two staged elements, its sum written to the chunk's own
+  const int flip = (p.nn[2] - 1) * p.nc;
+  dss_loop(
+      p.pass2, klo + 1, khi,
+      [&](int j) {
+        const int a = dss_div(j, p.nc_d);
+        return a * line + (j - a * p.nc);
+      },
+      [&](int kk, int o) {
+        T* hi = tile + own + kk * nnc + o;
+        T* lo = hi - nnc + flip;
+        const T s = *lo + *hi;
+        if (kk > 1) *lo = s;
+        if (kk <= C) *hi = s;
+      });
+  __syncthreads();
+
+  // 5. y = the chunk's rows of the own slab. A node of the mesh's first
+  // (last) axis-0 plane has no axis-0 partner, so its y is its bnd.
+  const T* t0 = tile + own + nnc;
+  V* yc = reinterpret_cast<V*>(y + (first + nnc));
+  const int n = C * nnc / VEC;
+  for (int i = tid; i < n; i += blockDim.x)
+    yc[i] = reinterpret_cast<const V*>(t0)[i];
+  if (bnd == nullptr) return;
+  const int ef = p.fa == 0 ? e0 : e1;
+  const int r0 = (p.fa == 0 ? e1 * p.ne[2] : 0) + c0;
+  const int pv = p.plane / VEC;
+  for (int side = 0; side < 2; ++side) {
+    if (ef != (side ? p.ne[p.fa] - 1 : 0)) continue;
+    const T* src = t0 + (side ? nnc - p.plane : 0);
+    V* dst = reinterpret_cast<V*>(bnd + ((int64_t)side * p.R + r0) * p.plane);
+    dss_loop(p.bndl, 0, C, [](int j) { return j; }, [&](int k, int j) {
+      dst[k * pv + j] = reinterpret_cast<const V*>(src + k * nnc)[j];
+    });
+  }
 }
 
-// y = DSS(u): one block per element row; threads walk its columns. The
-// copies of a node are summed in one canonical order that does not depend
-// on which slot computes the sum (pairs along axis 0 first, then pairs of
-// those along axis 1, then axis 2; lower element first in each pair). That
-// is the order the axis-by-axis plain DSS produces, and every duplicate
-// slot gets a bitwise-identical value.
-template <typename T>
-__global__ void dss_kernel(const T* __restrict__ u, T* __restrict__ y,
-                           MeshShape s) {
-  const int e = blockIdx.x;
-  T* __restrict__ row = y + (int64_t)e * s.nnc;
-  for (int col = threadIdx.x; col < s.nnc; col += blockDim.x)
-    row[col] = slot_sum(u, s, e, col, 0);
-}
-
-// threads per block for a row of n columns: whole warps, at most 256
-inline int row_threads(int n) {
-  const int t = (n + 31) / 32 * 32;
-  return t < 256 ? t : 256;
-}
-
-template <typename T>
-int launch_dss(const T* u, T* y, int64_t E, const MeshShape& s,
-               cudaStream_t stream) {
-  dss_kernel<T><<<(unsigned)E, row_threads(s.nnc), 0, stream>>>(u, y, s);
+template <typename T, int VEC>
+int launch_dss_as(const T* u, T* y, T* bnd, const DssPlan& p,
+                  cudaStream_t stream) {
+  auto kernel = dss_kernel<T, VEC>;
+  const int bytes = p.tile * (int)sizeof(T);
+  static int opted[64] = {};
+  const int err = allow_smem(kernel, bytes, opted);
+  if (err != 0) return err;
+  const int64_t blocks = (int64_t)p.ne[0] * p.ne[1] * p.nch;
+  kernel<<<(unsigned)blocks, p.threads, bytes, stream>>>(u, y, bnd, p);
   return (int)cudaGetLastError();
+}
+
+// y = DSS(u) and, unless bnd is null, the raw boundary planes; `chunk` as in
+// make_dss_plan
+template <typename T>
+int launch_dss(const T* u, T* y, T* bnd, const MeshShape& s,
+               cudaStream_t stream, int chunk = 0) {
+  constexpr int W = 16 / (int)sizeof(T);
+  const uintptr_t bits = (uintptr_t)u | (uintptr_t)y | (uintptr_t)bnd;
+  if (s.ngl * s.ncomp % W == 0 && (bits & 15) == 0)
+    return launch_dss_as<T, W>(
+        u, y, bnd, make_dss_plan(s, (int)sizeof(T), W, chunk), stream);
+  return launch_dss_as<T, 1>(u, y, bnd,
+                             make_dss_plan(s, (int)sizeof(T), 1, chunk),
+                             stream);
 }
 
 }  // namespace

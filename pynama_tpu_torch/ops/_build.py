@@ -56,12 +56,18 @@ _FUSED3X = [_VP, _VP, _VP, _VP, _I64, _I32, _I32, _I32, _I32,
             _I32, _I32, _I32, _VP]
 # t, matT, y, K, N, elem_bytes, out (int[3]); launches nothing
 _GEMM_PLAN = [_VP, _VP, _VP, _I32, _I32, _I32, ctypes.POINTER(_I32)]
+# u, y, bnd, ngl, ncomp, dim, ne0, ne1, ne2, chunk, stream
+_DSS = [_VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _VP]
+# ngl, ncomp, dim, ne0, ne1, ne2, elem_bytes, chunk, out (int[5]); launches
+# nothing
+_DSS_PLAN = [_I32] * 8 + [ctypes.POINTER(_I32)]
 SIGNATURES = {
     "pn_fused_apply_f32": _FUSED, "pn_fused_apply_f64": _FUSED,
     "pn_plainmm_f32": _PLAINMM, "pn_plainmm_f64": _PLAINMM,
     "pn_gemm_plan": _GEMM_PLAN,
     "pn_variant_apply_f32": _VARIANT, "pn_variant_apply_f64": _VARIANT,
     "pn_fused3x_f32": _FUSED3X,
+    "pn_dss_f32": _DSS, "pn_dss_f64": _DSS, "pn_dss_plan": _DSS_PLAN,
 }
 
 
