@@ -29,12 +29,17 @@ exits non-zero without the final result line:
             same shapes: K4 plainmm_apply and K3 variant_apply (blocks 1, 2
             and ne0, both do_rolls; f32 and f64, same limits; duplicate
             slots or seam pairs bitwise equal), K2 fused3x_apply (f32, same
-            limit, duplicate slots bitwise equal, <= 5e-5 from fused_apply);
+            limit, duplicate slots bitwise equal, <= 5e-5 from fused_apply,
+            its GEMM's plan equal to exp.mm3x.gemm3x_plan's);
             kernel and plain times at the 24^3 ngl=4 shapes (K4 also
-            beside cuBLAS, `library_ms`); a GEMM sweep
+            beside cuBLAS, `library_ms`; K2 also with its GEMM alone,
+            `gemm3x_device_us`, beside that GEMM's bytes bound); a GEMM sweep
             of plainmm_apply over M in GEMM_M and (K, N) in GEMM_KN plus two
             misaligned views, f32 and f64, printing each case's loader and
-            tile and failing unless both loaders ran in both dtypes; then the
+            tile and failing unless both loaders ran in both dtypes; the
+            same sweep of K2's GEMM (exp.mm3x.gemm3x against mm3x_ref, plus
+            GEMM3X_KN), failing unless every tile width, resident and
+            streamed, and both loaders ran; then the
             two drivers exp.fused_decomp and exp.mm3x at 24^3 ngl=4 (200
             applies per chain, 3 rounds), with each kernel's launch count
             set to 0 just before them and read just after
@@ -46,6 +51,10 @@ exits non-zero without the final result line:
             adaptive steps through start_solver(); prints setup phases,
             seconds per step, CG iterations per solve, kernel launches (which
             must account for every operator application) and peak memory
+6. cg_split the flagship's free-slip-stage system after those steps, solved
+            by solver.cg.pcg (rtol 1e-6) once with apply_K through K1 and
+            once through K2, same b and x0: iterations, loop applies and
+            the true residual (float64 operator) of each; a record, no gate
 
 The last three lines are the card's name and power limit (nvidia-smi), the
 record of the four kernels as JSON and the result line
@@ -77,6 +86,14 @@ DEVICE_CALLS = 20    # calls per profiled device time
 GEMM_M = [1, 63, 64, 127, 129, 13824]
 GEMM_KN = [(9, 18), (27, 18), (192, 192), (192, 384), (384, 192),
            (1029, 2058)]
+# more (K, N) for the sweep of K2's GEMM: streamed matT halves at the
+# 32-column tile, and N <= 96 on the 192-column tile, which no engine shape
+# gives
+GEMM3X_KN = [(2058, 18), (1029, 96)]
+GEMM3X_M = [129, 1000]
+# every (tile columns, resident, bytes per copy of t) of K2's GEMM
+GEMM3X_PATHS = {(32, 1, 4), (192, 1, 16), (192, 1, 4), (32, 0, 4),
+                (192, 0, 4), (192, 0, 16)}
 # chunk lengths of the DSS sweep (0: make_dss_plan's rule)
 DSS_CHUNKS = [0, 2, 3, 4, 6, 8, 12, 24]
 # H100 SXM peaks (NVIDIA's data sheet, dense): HBM3 bytes/s; FLOP/s of FP32
@@ -367,6 +384,7 @@ def _decomp_checks(torch, dev):
 
     record = {}
     seed = 100
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for label, nelem, ngl, pairs in SHAPES:
         dim = len(nelem)
         nn = ngl ** dim
@@ -458,6 +476,12 @@ def _decomp_checks(torch, dev):
                       f"differ by {spread:.3e}")
                 check(split <= SPLIT_LIMIT, f"fused3x {what}: {split:.3e} "
                       f"from fused_apply > {SPLIT_LIMIT}")
+                plan = M3.gemm3x_library_plan(t, nn * cout)
+                want = M3.gemm3x_plan(E, nn * cin, nn * cout,
+                                      t.data_ptr() % 16 == 0, sms)
+                check(plan == want, f"fused3x {what}: GEMM plan {plan} != "
+                      f"gemm3x_plan's {want}")
+                row["gemm_plan"] = [plan[k] for k in M3.PLAN_KEYS]
                 if flagship:
                     row.update(_timed_pair(
                         torch, lambda: M3.fused3x_apply(t, m, nelem, ngl,
@@ -469,6 +493,11 @@ def _decomp_checks(torch, dev):
                         E, nn * cin, nn * cout, dname, products=3,
                         peak=PEAK_FLOPS["bfloat16"])
                     row["library_ms"] = None
+                    # its GEMM alone (the split of matT and the wgmma
+                    # kernel); same bytes, same bound
+                    row["gemm3x_device_us"], row["gemm3x_kernels"] = \
+                        _device_us(torch, lambda: M3.gemm3x(t, m))
+                    row["gemm3x_bound_us"] = row["bound_ms"] * 1e3
                     if (cin, cout) == (3, 3):
                         record["fused3x"] = row
             for name, kr in rows.items():
@@ -498,15 +527,7 @@ def _gemm_sweep(torch, dev):
         for M, K, N, view in cases:
             seed += 1
             rng = np.random.default_rng(seed)
-            if view == "rows+1":
-                t = torch.as_tensor(rng.standard_normal((M + 1, K)),
-                                    dtype=dtype, device=dev)[1:]
-            elif view == "offset+1":
-                t = torch.as_tensor(rng.standard_normal(M * K + 1),
-                                    dtype=dtype, device=dev)[1:].view(M, K)
-            else:
-                t = torch.as_tensor(rng.standard_normal((M, K)), dtype=dtype,
-                                    device=dev)
+            t = _sweep_input(torch, dev, rng, M, K, view, dtype)
             m = torch.as_tensor(rng.standard_normal((K, N)), dtype=dtype,
                                 device=dev)
             y = D.plainmm_apply(t, m, M)
@@ -527,6 +548,58 @@ def _gemm_sweep(torch, dev):
           f"{sorted(want)}")
 
 
+def _sweep_input(torch, dev, rng, M, K, view, dtype):
+    """t (M, K) for a sweep case: contiguous, or one of the two misaligned
+    views."""
+    if view == "rows+1":
+        return torch.as_tensor(rng.standard_normal((M + 1, K)), dtype=dtype,
+                               device=dev)[1:]
+    if view == "offset+1":
+        return torch.as_tensor(rng.standard_normal(M * K + 1), dtype=dtype,
+                               device=dev)[1:].view(M, K)
+    return torch.as_tensor(rng.standard_normal((M, K)), dtype=dtype,
+                           device=dev)
+
+
+def _gemm3x_sweep(torch, dev):
+    """K2's GEMM alone (exp.mm3x.gemm3x) against mm3x_ref over the GEMM
+    sweep's cases and GEMM3X_M x GEMM3X_KN; prints each case's plan and
+    fails unless every path of GEMM3X_PATHS ran."""
+    from pynama_tpu_torch.exp import mm3x as M3
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = [(M, K, N, "") for M in GEMM_M for K, N in GEMM_KN]
+    cases += [(13824, 9, 18, "rows+1"), (13824, 192, 192, "offset+1")]
+    cases += [(M, K, N, "") for M in GEMM3X_M for K, N in GEMM3X_KN]
+    seed = 900
+    rows, paths = [], set()
+    for M, K, N, view in cases:
+        seed += 1
+        rng = np.random.default_rng(seed)
+        t = _sweep_input(torch, dev, rng, M, K, view, torch.float32)
+        m = torch.as_tensor(rng.standard_normal((K, N)), dtype=torch.float32,
+                            device=dev)
+        u = M3.gemm3x(t, m)
+        ur = M3.mm3x_ref(t, m)
+        torch.cuda.synchronize()
+        rel = float((u - ur).abs().max() / ur.abs().max())
+        plan = M3.gemm3x_library_plan(t, N)
+        want = M3.gemm3x_plan(M, K, N, t.data_ptr() % 16 == 0, sms)
+        what = f"gemm3x M={M} K={K} N={N} {view}"
+        check(plan == want, f"{what}: plan {plan} != gemm3x_plan's {want}")
+        check(rel <= F32_LIMIT, f"{what}: rel err {rel:.3e} > {F32_LIMIT}")
+        paths.add((plan["tile_n"], plan["resident"], plan["loader_bytes"]))
+        rows.append([M, K, N, view, plan["tile_n"], plan["resident"],
+                     plan["loader_bytes"], plan["grid_x"], plan["ncol"],
+                     rel])
+    emit("gemm3x_sweep", limit=F32_LIMIT,
+         worst_rel_err=max(r[-1] for r in rows),
+         cases="[M, K, N, view, tile_n, resident, loader_bytes, grid_x, "
+         "ncol, rel_err]", rows=rows)
+    check(paths >= GEMM3X_PATHS, f"gemm3x paths exercised {sorted(paths)}, "
+          f"want {sorted(GEMM3X_PATHS)}")
+
+
 def phase_decomp(torch, dev):
     """3b: K2-K4 checked, the GEMM sweep, then both decomposition drivers
     at 24^3 ngl=4 with the launch counts read around them."""
@@ -535,6 +608,7 @@ def phase_decomp(torch, dev):
 
     record = _decomp_checks(torch, dev)
     _gemm_sweep(torch, dev)
+    _gemm3x_sweep(torch, dev)
     wrappers = {"plainmm": D.plainmm_apply, "variant": D.variant_apply,
                 "fused3x": M3.fused3x_apply}
     for fn in wrappers.values():
@@ -651,7 +725,68 @@ def phase_main(torch, dev):
           f"{expected} operator applications")
     check(all(n >= it for it, n in zip(iters, applies)),
           "CG made fewer operator applications than iterations")
-    return launches
+    return launches, p
+
+
+def phase_cg_split(torch, p):
+    """The free-slip-stage system of the flagship at its state after
+    phase_main's steps, built as engine.local_engine._masked_solve builds
+    it, solved by pcg once with apply_K through K1 (full f32) and once
+    through K2 (split bf16), same b and x0. A record: nothing is gated."""
+    from pynama_tpu_torch.engine import local_engine as LE
+    from pynama_tpu_torch.exp.mm3x import fused3x_apply
+    from pynama_tpu_torch.ops.fused import fused_apply
+    from pynama_tpu_torch.solver.cg import pcg
+
+    ops = p.engine_ops
+    shape = (ops.nelem, ops.ngl, ops.lay_v.ncomp)
+    vort = LE.apply_vorticity_bc(ops, p.to_local(p.vort), 0.0)
+    vel = LE.apply_velocity_bc(ops, p.to_local(p.vel), 0.0)
+    free = ops.free_fs
+    con = 1.0 - free
+    vc = con * vel
+    dot = LE._dot_v(ops)
+
+    def K1(v):
+        return fused_apply(v, ops.KT, *shape)[0]
+
+    def K2(v):
+        return fused3x_apply(v, ops.KT, *shape, 1)
+
+    b = free * (fused_apply(vort, ops.RwT, *shape)[0] - K1(vc)) + vc
+    x0 = free * vel + vc
+    dmask = free * ops.diag + con
+    # the true residual, with the operator in float64
+    KT64, free64, b64 = ops.KT.double(), free.double(), b.double()
+    inv64 = ops.lay_v.inv_mult.double()
+
+    def true_residual(x):
+        x64 = x.double()
+        r = b64 - (free64 * fused_apply(free64 * x64, KT64, *shape)[0]
+                   + (1.0 - free64) * x64)
+        return float(torch.sqrt((r * r * inv64).sum()
+                                / (b64 * b64 * inv64).sum()))
+
+    out = {"rtol": 1e-6, "x0_true_residual": true_residual(x0)}
+    xs = {}
+    for name, K in (("K1", K1), ("K2", K2)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pcg(lambda v: free * K(v), b, x0, M_inv=lambda r: r / dmask,
+                  rtol=1e-6, atol=ops.cg_atol, maxiter=ops.cg_maxiter,
+                  dot=dot, A0=lambda v: free * K(free * v) + con * v)
+        torch.cuda.synchronize()
+        out[name] = dict(iters=int(res.iters), loop_applies=res.loop_applies,
+                         cg_residual=float(res.residual),
+                         true_residual=true_residual(res.x),
+                         seconds=time.perf_counter() - t0)
+        check(bool(torch.isfinite(res.x).all()),
+              f"cg_split {name}: non-finite solution")
+        xs[name] = res.x
+    out["x_rel_diff"] = float((xs["K2"] - xs["K1"]).abs().max()
+                              / xs["K1"].abs().max())
+    emit("cg_split", config="cavity3d 24^3 ngl=4 f32, free-slip stage after "
+         "2 steps", **out)
 
 
 def main() -> int:
@@ -669,7 +804,8 @@ def main() -> int:
     record = phase_kernels(torch, dev)
     decomp = phase_decomp(torch, dev)
     phase_parity(torch, dev)
-    launches = phase_main(torch, dev)
+    launches, problem = phase_main(torch, dev)
+    phase_cg_split(torch, problem)
 
     record["launches"] = launches
     kernels = [("fused_apply", "fused_apply.cu", "pynama_tpu/ops/fused.py:180",
@@ -687,7 +823,9 @@ def main() -> int:
         "launches": r["launches"], "max_abs_err": r["max_abs_err"],
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        "device_us": r["device_us"], "plain_device_us": r["plain_device_us"]}
+        "device_us": r["device_us"], "plain_device_us": r["plain_device_us"],
+        **{k: r[k] for k in ("gemm3x_device_us", "gemm3x_bound_us")
+           if k in r}}
         for name, src, replaces, r in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -51,9 +51,14 @@ _PLAINMM = [_VP, _VP, _VP, _I64, _I32, _I32, _VP]
 # do_rolls, stream
 _VARIANT = [_VP, _VP, _VP, _VP, _I64, _I32, _I32, _I32, _I32,
             _I32, _I32, _I32, _I32, _I32, _VP]
-# t, matT, u, y, E, nnc_in, ngl, ncomp_out, dim, ne0, ne1, ne2, stream
-_FUSED3X = [_VP, _VP, _VP, _VP, _I64, _I32, _I32, _I32, _I32,
+# t, matT, split, split_bytes, u, y, E, nnc_in, ngl, ncomp_out, dim, ne0,
+# ne1, ne2, stream
+_FUSED3X = [_VP, _VP, _VP, _I64, _VP, _VP, _I64, _I32, _I32, _I32, _I32,
             _I32, _I32, _I32, _VP]
+# t, matT, split, split_bytes, u, M, K, N, stream
+_GEMM3X = [_VP, _VP, _VP, _I64, _VP, _I64, _I32, _I32, _VP]
+# t, M, K, N, out (int[9]); launches nothing
+_GEMM3X_PLAN = [_VP, _I64, _I32, _I32, ctypes.POINTER(_I32)]
 # t, matT, y, K, N, elem_bytes, out (int[3]); launches nothing
 _GEMM_PLAN = [_VP, _VP, _VP, _I32, _I32, _I32, ctypes.POINTER(_I32)]
 # u, y, bnd, ngl, ncomp, dim, ne0, ne1, ne2, chunk, stream
@@ -66,7 +71,8 @@ SIGNATURES = {
     "pn_plainmm_f32": _PLAINMM, "pn_plainmm_f64": _PLAINMM,
     "pn_gemm_plan": _GEMM_PLAN,
     "pn_variant_apply_f32": _VARIANT, "pn_variant_apply_f64": _VARIANT,
-    "pn_fused3x_f32": _FUSED3X,
+    "pn_fused3x_f32": _FUSED3X, "pn_gemm3x_f32": _GEMM3X,
+    "pn_gemm3x_plan": _GEMM3X_PLAN,
     "pn_dss_f32": _DSS, "pn_dss_f64": _DSS, "pn_dss_plan": _DSS_PLAN,
 }
 
