@@ -1,5 +1,6 @@
 """GPU smoke run of pynama_tpu_torch: build the kernels, check them, drive
-the main path and the decomposition drivers at full size.
+the main path, the analytic-function case, the FDM preconditioner and the
+decomposition drivers at full size.
 
     python3 chip_smoke.py
 
@@ -12,17 +13,19 @@ exits non-zero without the final result line:
 2. build    nvcc build of the kernel library (seconds, ptxas register use)
 3. kernels  fused_apply's CUDA kernel against its plain PyTorch version on
             the card, at every operator shape of the engine (3D ngl=4 24^3,
-            3D ngl=7 8^3, 2D ngl=3 50x50, degenerate extents), float32 and
+            3D ngl=3 25^3, 3D ngl=7 8^3, 2D ngl=3 50x50, degenerate
+            extents), float32 and
             float64: y and bnd each within max|err|/max|ref| <= 1e-5 (f32) /
             1e-12 (f64), and every duplicated slot bitwise equal; its DSS
             pass alone (dss_pass) on a random u bitwise equal to the plain
             DSS of that u, y and bnd, and its plan equal to
             ops.fused.dss_tile_plan's; kernel and plain times at the 24^3
-            ngl=4 shapes: CUDA-event medians around single calls (`ms`, host
-            enqueue included) and device time per call from torch.profiler
-            over 20 calls (`device_us`, every kernel the call launches;
-            `dss_device_us`, the DSS pass's share), which ranks kernel
-            against plain, beside the bound (`bound_ms`); then the DSS pass
+            ngl=4 and 25^3 ngl=3 shapes (TIMED): CUDA-event medians around
+            single calls (`ms`, host enqueue included) and device time per
+            call from torch.profiler over 20 calls (`device_us`, every
+            kernel the call launches; `dss_device_us`, the DSS pass's
+            share), which ranks kernel against plain, beside the bound
+            (`bound_ms`); then the DSS pass
             at 24^3 ngl=4 over chunk lengths DSS_CHUNKS (device time, each
             checked bitwise)
 3b. decomp  the decomposition kernels against their plain versions at the
@@ -43,9 +46,12 @@ exits non-zero without the final result line:
             two drivers exp.fused_decomp and exp.mm3x at 24^3 ngl=4 (200
             applies per chain, 3 rounds), with each kernel's launch count
             set to 0 just before them and read just after
-4. parity   a small 3D cavity (ngl=3, 3^3, f64): one rhs_local and a
-            3-step transient on the GPU (kernel) against the CPU (plain
-            version), relative error <= 1e-9, same accepted steps
+4. parity   small f64 cases, each one rhs_local and a 3-step transient on
+            the GPU (kernel) against the CPU (plain version), relative
+            error <= 1e-9, same accepted steps: the 3D no-slip cavity (3^3
+            ngl=3), the 3D Taylor-Green case (3^3 ngl=3), the flat plate
+            with mixed walls (4^2 ngl=3 from t=0.1) and the cavity under
+            pc="fdm"
 5. main     the flagship no-slip 3D lid-driven cavity (24^3 elements,
             ngl=4, float32, CG rtol 1e-6): Problem.setUp() and 2 accepted
             adaptive steps through start_solver(); prints setup phases,
@@ -55,6 +61,25 @@ exits non-zero without the final result line:
             by solver.cg.pcg (rtol 1e-6) once with apply_K through K1 and
             once through K2, same b and x0: iterations, loop applies and
             the true residual (float64 operator) of each; a record, no gate
+7. taylor_green3d
+            the 3D Taylor-Green case file at full width (25^3 elements,
+            ngl=3, custom-func boundary and initial conditions, float32, CG
+            rtol 1e-6): setUp and 3 accepted steps; setup phases, s/step, CG
+            iterations, K1 launches against the expected count, peak memory
+            and the relative max-norm vorticity error against the analytic
+            field at the end time, which must be <= TG3D_ERR_LIMIT
+8. fdm      the flagship's config built with pc="jacobi" and pc="fdm", one
+            cold two-stage solve each from the curl of a numpy-seeded random
+            velocity: in f64 (CG rtol 1e-10) the velocities agree to 1e-6
+            and FDM takes fewer iterations on both stages; in f32 (rtol
+            1e-6) a record: iterations, CUDA-event ms per solve (median of
+            3), the FDM apply's device µs and launches per call beside K1's,
+            and the FDM setup seconds
+9. rhs_trace one warm rhs_local of the flagship after phase 5's steps,
+            timed untraced (median of 3) and traced once with
+            torch.profiler: the device-busy, K1 and other-kernel (CG
+            vectors, BC writes, vtensv) shares of its untraced wall time,
+            K1's launches against 2 per operator application
 
 The last three lines are the card's name and power limit (nvidia-smi), the
 record of the four kernels as JSON and the result line
@@ -75,6 +100,16 @@ import numpy as np
 F32_LIMIT = 1e-5     # max|err|/max|ref|, float32 (tests/test_fused.py)
 F64_LIMIT = 1e-12
 PARITY_LIMIT = 1e-9
+# the taylor_green3d phase's vorticity error limit: twice the JAX package's own
+# relative max-norm error at the same config and end time, f64 on the CPU
+# (`python tools/tg3d_reference_error.py`: TG3D_REF_ERR, in 3 steps to
+# TG3D_REF_T, the end time this phase's 3 steps reached on an NVIDIA H100
+# 80GB HBM3)
+TG3D_REF_ERR = 0.043948261261991015
+TG3D_REF_T = 0.013183098548825902
+TG3D_ERR_LIMIT = 2 * TG3D_REF_ERR
+# the fdm phase: f64 jacobi and fdm solutions agree to this, relative
+FDM_AGREE_LIMIT = 1e-6
 # the decomposition drivers: the flagship shape, depth cut to 200 applies
 # per chain and 3 rounds
 DRIVER_ARGS = ["24", "4", "--nit", "200", "--rounds", "3"]
@@ -107,12 +142,16 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 67e12, "bfloat16": 989e12}
 # div s->v
 SHAPES = [
     ("3d-ngl4-24^3", (24, 24, 24), 4, [(3, 3), (3, 6), (6, 3)]),
+    # the 3D Taylor-Green case file's mesh (taylor_green3d phase)
+    ("3d-ngl3-25^3", (25, 25, 25), 3, [(3, 3), (3, 6), (6, 3)]),
     ("3d-ngl7-8^3", (8, 8, 8), 7, [(3, 3), (3, 6), (6, 3)]),
     ("2d-ngl3-50^2", (50, 50), 3, [(2, 2), (1, 2), (2, 1), (2, 3), (3, 2)]),
     ("3d-ngl3-1x2x2", (1, 2, 2), 3, [(3, 1)]),
     ("3d-ngl4-4x1x2", (4, 1, 2), 4, [(3, 3)]),
     ("3d-ngl2-2^3", (2, 2, 2), 2, [(3, 3)]),
 ]
+# shapes at which phase 3 times K1 against its plain version and its bound
+TIMED = ("3d-ngl4-24^3", "3d-ngl3-25^3")
 
 
 def _bound(flops, peak, nbytes):
@@ -154,6 +193,42 @@ def cavity_config(nelem, ngl, rho, mu, lid, max_steps, end_time):
         "boundary-conditions": {"no-slip": {
             s: (lid if s == "up" else zero) for s in sides}},
         "initial-conditions": {"vorticity": [0, 0, 0]},
+    }
+
+
+def tg3d_config(nelem, ngl, max_steps):
+    """pynama_tpu/cases/yaml/taylor-green3d.yaml (25^3 elements, ngl=3, rho
+    0.5, mu 0.01, taylor_green3d on every side, as initial condition and as
+    the exact solution), with the mesh and the step count given."""
+    cf = {"custom-func": {"name": "taylor_green3d",
+                          "attributes": ["velocity", "vorticity", "alpha"]}}
+    return {
+        "name": "taylor-green3d",
+        "material-properties": {"rho": 0.5, "mu": 0.01},
+        "domain": {"ngl": ngl, "box-mesh": {
+            "nelem": list(nelem), "lower": [0, 0, 0], "upper": [1, 1, 1]}},
+        "time-solver": {"max-steps": max_steps, "start-time": 0,
+                        "end-time": 10},
+        "boundary-conditions": cf, "initial-conditions": cf, "tests": cf,
+    }
+
+
+def fsns_config(nelem, ngl, start, max_steps):
+    """pynama_tpu/cases/yaml/flat-plate-FSNS.yaml (rho 0.5, mu 0.01; no-slip
+    plate [0, 1] at the bottom, the flat_plate solution as free-slip values
+    on the other sides) with the mesh, start time and step count given."""
+    fp = {"custom-func": {"name": "flat_plate"}}
+    return {
+        "name": "flat-plate-FSNS",
+        "material-properties": {"rho": 0.5, "mu": 0.01},
+        "domain": {"ngl": ngl, "box-mesh": {
+            "nelem": list(nelem), "lower": [0, 0], "upper": [1, 1]}},
+        "time-solver": {"max-steps": max_steps, "start-time": start,
+                        "end-time": start + 1.0},
+        "boundary-conditions": {"no-slip": {"down": [0, 1]},
+                                "free-slip": {"left": fp, "right": fp,
+                                              "up": fp}},
+        "initial-conditions": fp, "tests": fp,
     }
 
 
@@ -210,13 +285,15 @@ def _median_ms(torch, fn, reps=30, warmup=3):
     return float(np.median(times))
 
 
-def _device_us(torch, fn, calls=DEVICE_CALLS, tries=3):
-    """Device time per call, µs: the self device time of every kernel that
-    `calls` calls of fn launch (torch.profiler, CUDA activity), summed and
-    divided by `calls`; and the same per kernel name. On the H100 machine
-    the profiler now and then returns a window with no kernel records, so a
-    window in which some kernel did not run a multiple of `calls` times is
-    taken again, `tries` times at most."""
+def _profile(torch, fn, calls=DEVICE_CALLS, tries=3, whole=True):
+    """Per kernel name (its first 60 characters; instantiations that share
+    them are summed): device µs and launches per call of fn, from the self
+    device time and count of every kernel that `calls` calls launch
+    (torch.profiler, CUDA activity). On the H100 machine the profiler now
+    and then returns a window with no kernel records, so a window in which
+    some kernel did not run a multiple of `calls` times is taken again,
+    `tries` times at most; with whole=False the first window with records
+    is taken as it is (launch counts per call may then be fractions)."""
     fn()
     torch.cuda.synchronize()
     act = torch.profiler.ProfilerActivity.CUDA
@@ -227,11 +304,30 @@ def _device_us(torch, fn, calls=DEVICE_CALLS, tries=3):
             torch.cuda.synchronize()
         rows = [e for e in prof.key_averages()
                 if e.self_device_time_total > 0]
-        if rows and all(e.count % calls == 0 for e in rows):
-            per = {e.key[:60]: e.self_device_time_total / calls
-                   for e in rows}
-            return sum(per.values()), per
+        if rows and (not whole or all(e.count % calls == 0 for e in rows)):
+            per, counts = {}, {}
+            for e in rows:
+                k = e.key[:60]
+                per[k] = per.get(k, 0.0) + e.self_device_time_total / calls
+                counts[k] = counts.get(k, 0) + e.count / calls
+            return per, counts
     raise RuntimeError(f"the profiler saw no whole window in {tries} tries")
+
+
+def _device_us(torch, fn, calls=DEVICE_CALLS, tries=3):
+    """Device time per call, µs, summed over the kernels fn launches; and
+    the same per kernel name (see _profile)."""
+    per, _ = _profile(torch, fn, calls, tries)
+    return sum(per.values()), per
+
+
+def _profile_record(torch, fn):
+    """_profile for a record: a whole window if one comes in 3 tries, else
+    the next window as it is; returns (per, counts, whole)."""
+    try:
+        return _profile(torch, fn) + (True,)
+    except RuntimeError:
+        return _profile(torch, fn, whole=False) + (False,)
 
 
 def _timed_pair(torch, kernel, plain):
@@ -300,7 +396,7 @@ def phase_kernels(torch, dev):
                            dss_plan=[plan[k] for k in ("C", "nch", "threads",
                                                        "tile_bytes",
                                                        "copy_bytes")])
-                if label == "3d-ngl4-24^3":
+                if label in TIMED:
                     row.update(_timed_pair(
                         torch, lambda: fused_apply(t, m, nelem, ngl, cout),
                         lambda: fused_apply_ref(t, m, nelem, ngl, cout)))
@@ -313,7 +409,8 @@ def phase_kernels(torch, dev):
                     row["dss_bound_us"] = 1e6 * (
                         2 * E * nn * cout + 2 * R * plane) * eb / HBM_BPS
                     row["library_ms"] = None
-                    if dtype == torch.float32 and (cin, cout) == (3, 3):
+                    if label == TIMED[0] and dtype == torch.float32 \
+                            and (cin, cout) == (3, 3):
                         record = row
                 emit("kernels", **row)
                 what = f"fused_apply {label} {dname} {nn * cin}->{nn * cout}"
@@ -638,35 +735,62 @@ def phase_decomp(torch, dev):
     return record
 
 
+def parity_cases():
+    """(label, config, Problem options, stepper tolerance) of the GPU-vs-CPU
+    parity cases. The stepper's tolerance is one at which every accepted
+    step's size factor is clipped at 10 (dt 1e-3, 1e-2, 1e-1): a factor the
+    error norm sets moves with the CG solves' last bits (at 1e-8 the 3D
+    Taylor-Green case's third dt differs by ~1e-5 between the kernel and
+    the plain version), and so would the end time."""
+    opts = dict(solver="cg", cg_rtol=1e-13, cg_maxiter=4000)
+    cavity = cavity_config((3, 3, 3), 3, 1.0, 0.02, [1.0, 0, 0], 3, 1.0)
+    return [
+        ("cavity3d 3^3 ngl=3", cavity, opts, 1e-8),
+        ("taylor-green3d 3^3 ngl=3", tg3d_config((3, 3, 3), 3, 3), opts,
+         1e-4),
+        # from t = 0.1: the flat plate's tau is 0 at t = 0
+        ("flat-plate-FSNS 4^2 ngl=3 t0=0.1",
+         fsns_config((4, 4), 3, 0.1, 3), opts, 1e-4),
+        ("cavity3d 3^3 ngl=3 pc=fdm", cavity, dict(opts, pc="fdm"), 1e-8),
+    ]
+
+
 def phase_parity(torch, dev):
     from pynama_tpu_torch.cases import Problem
     from pynama_tpu_torch.engine.local_engine import rhs_local
 
-    cfg = cavity_config((3, 3, 3), 3, 1.0, 0.02, [1.0, 0, 0], 3, 1.0)
-    opts = dict(solver="cg", cg_rtol=1e-13, cg_maxiter=4000)
-    out = {}
-    for name, device in (("gpu", dev), ("cpu", torch.device("cpu"))):
-        p = Problem(cfg, device=device, dtype=torch.float64, **opts)
-        p.setUp()
-        rng = np.random.default_rng(0)
-        vort = p.to_local(rng.standard_normal((p.mesh.n_nodes, 3)))
-        vel = torch.zeros((p.mesh.n_cells, p.mesh.nnode_el * 3),
-                          dtype=torch.float64, device=device)
-        f, _ = rhs_local(p.engine_ops, 0.0, vort, vel)
-        t_end, steps = p.start_solver(atol=1e-8, rtol=1e-8, dt0=1e-3)
-        out[name] = dict(f=f.cpu().numpy(), vort=p.vort.cpu().numpy(),
-                         vel=p.vel.cpu().numpy(), t=t_end, steps=steps)
-    rel = {k: float(np.abs(out["gpu"][k] - out["cpu"][k]).max()
-                    / np.abs(out["cpu"][k]).max())
-           for k in ("f", "vort", "vel")}
-    emit("parity", rel_err=rel, limit=PARITY_LIMIT,
-         steps_gpu=out["gpu"]["steps"], steps_cpu=out["cpu"]["steps"],
-         t_gpu=out["gpu"]["t"], t_cpu=out["cpu"]["t"])
-    check(out["gpu"]["steps"] == out["cpu"]["steps"] == 3,
-          f"accepted steps gpu {out['gpu']['steps']} cpu "
-          f"{out['cpu']['steps']} (want 3)")
-    check(all(v <= PARITY_LIMIT for v in rel.values()),
-          f"GPU vs CPU relative error {rel} > {PARITY_LIMIT}")
+    for label, cfg, opts, tol in parity_cases():
+        out = {}
+        for name, device in (("gpu", dev), ("cpu", torch.device("cpu"))):
+            p = Problem(cfg, device=device, dtype=torch.float64, **opts)
+            p.setUp()
+            rng = np.random.default_rng(0)
+            vort = p.to_local(rng.standard_normal((p.mesh.n_nodes,
+                                                   p.dim_w)))
+            vel = torch.zeros((p.mesh.n_cells, p.mesh.nnode_el * p.dim),
+                              dtype=torch.float64, device=device)
+            f, _ = rhs_local(p.engine_ops, p.start_time, vort, vel)
+            t_end, steps = p.start_solver(atol=tol, rtol=tol, dt0=1e-3)
+            out[name] = dict(f=f.cpu().numpy(), vort=p.vort.cpu().numpy(),
+                             vel=p.vel.cpu().numpy(), t=t_end, steps=steps,
+                             pc=p.engine_ops.pc)
+        rel = {k: float(np.abs(out["gpu"][k] - out["cpu"][k]).max()
+                        / np.abs(out["cpu"][k]).max())
+               for k in ("f", "vort", "vel")}
+        emit("parity", case=label, rel_err=rel, limit=PARITY_LIMIT,
+             stepper_tol=tol,
+             pc=out["gpu"]["pc"], steps_gpu=out["gpu"]["steps"],
+             steps_cpu=out["cpu"]["steps"], t_gpu=out["gpu"]["t"],
+             t_cpu=out["cpu"]["t"])
+        check(out["gpu"]["pc"] == out["cpu"]["pc"] == opts.get("pc",
+                                                               "jacobi"),
+              f"parity {label}: preconditioner {out['gpu']['pc']}")
+        check(out["gpu"]["steps"] == out["cpu"]["steps"] == 3,
+              f"parity {label}: accepted steps gpu {out['gpu']['steps']} "
+              f"cpu {out['cpu']['steps']} (want 3)")
+        check(all(v <= PARITY_LIMIT for v in rel.values()),
+              f"parity {label}: GPU vs CPU relative error {rel} > "
+              f"{PARITY_LIMIT}")
 
 
 def phase_main(torch, dev):
@@ -725,7 +849,193 @@ def phase_main(torch, dev):
           f"{expected} operator applications")
     check(all(n >= it for it, n in zip(iters, applies)),
           "CG made fewer operator applications than iterations")
-    return launches, p
+    return launches, p, t_end
+
+
+def phase_rhs_trace(torch, p, t):
+    """One warm rhs_local of the flagship at its state after the steps:
+    the median wall time of 3 untraced calls, then one call traced with
+    torch.profiler; the device-busy share of the untraced wall and the
+    shares of K1's kernels (the ones one fused_apply call launches) and of
+    every other kernel (CG vectors, BC writes, vtensv)."""
+    from pynama_tpu_torch.engine.local_engine import rhs_local
+    from pynama_tpu_torch.ops.fused import fused_apply
+
+    ops = p.engine_ops
+    vort, vel = p.to_local(p.vort), p.to_local(p.vel)
+    k1_names = set(_profile(torch, lambda: fused_apply(
+        vel, ops.KT, ops.nelem, ops.ngl, ops.dim))[0])
+    stats = []
+
+    def rhs():
+        stats.clear()
+        rhs_local(ops, t, vort, vel, stats)
+        torch.cuda.synchronize()
+
+    rhs()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        rhs()
+        walls.append(time.perf_counter() - t0)
+    wall_us = float(np.median(walls)) * 1e6
+    per, counts = _profile(torch, rhs, calls=1, whole=False)
+    total = sum(per.values())
+    k1 = sum(v for k, v in per.items() if k in k1_names)
+    iters = [int(it) for it, _ in stats]
+    applies = sum(n for _, n in stats)
+    emit("rhs_trace", config="cavity3d 24^3 ngl=4 f32, one warm rhs_local",
+         wall_us_untraced=wall_us, wall_us_runs=[w * 1e6 for w in walls],
+         device_us=total, k1_device_us=k1, vector_device_us=total - k1,
+         device_busy_share=total / wall_us, k1_share=k1 / wall_us,
+         vector_share=(total - k1) / wall_us,
+         idle_share=1.0 - total / wall_us, cg_iters_fs_main=iters,
+         cg_loop_applies=applies, k1_kernels=sorted(k1_names),
+         kernel_launches=sum(counts.values()),
+         k1_launches=sum(counts.get(k, 0) for k in k1_names),
+         k1_launches_expected=2 * (applies + 10),
+         wall_us_per_loop_apply=wall_us / max(applies, 1),
+         top_kernels=sorted(per.items(), key=lambda kv: -kv[1])[:8])
+
+
+def phase_taylor_green3d(torch, dev):
+    """The 3D Taylor-Green case file at full width, depth cut to 3 steps."""
+    from pynama_tpu_torch.cases import Problem
+    from pynama_tpu_torch.ops.fused import fused_apply
+
+    cfg = tg3d_config((25, 25, 25), 3, 3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fused_apply.launches = 0
+    p = Problem(cfg, device=dev, dtype=torch.float32, solver="cg",
+                cg_rtol=1e-6, cg_maxiter=1000)
+    t0 = time.perf_counter()
+    p.setUp()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    p.cg_log = []
+    t0 = time.perf_counter()
+    t_end, steps = p.start_solver(dt0=1e-3, atol=1e-4, rtol=1e-4)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = fused_apply.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    iters = [int(it) for it, _ in p.cg_log]
+    applies = [n for _, n in p.cg_log]
+    n_rhs = len(p.cg_log)            # free-slip sides only: one solve each
+    # per rhs_local: Rw, apply_K(vc), the A0 residual, then srt, div_srt,
+    # curl -> 6; plus every operator application of the CG loops
+    expected = 6 * n_rhs + sum(applies)
+    w_exact = p.exact_fields(t_end)[1].double()
+    vort = p.vort.double()
+    err = float((vort - w_exact).abs().max() / w_exact.abs().max())
+    finite = bool(torch.isfinite(p.vort).all()) and bool(
+        torch.isfinite(p.vel).all())
+    emit("taylor_green3d", config="taylor-green3d 25^3 ngl=3 f32 cg_rtol=1e-6",
+         n_nodes=p.mesh.n_nodes, bc_type=p.bc.bc_type,
+         func_sides=len(p.engine_ops.func_sides), setup_s=setup_s,
+         setup_phases_s=p.setup_phases, accepted_steps=steps, t_end=t_end,
+         run_s=run_s, s_per_step=run_s / max(steps, 1), rhs_evals=n_rhs,
+         cg_iters=iters, cg_loop_applies=sum(applies),
+         fused_apply_launches=launches, expected_launches=expected,
+         peak_mem_bytes=peak, vort_rel_max_err=err,
+         err_limit=TG3D_ERR_LIMIT, jax_ref_err=TG3D_REF_ERR,
+         jax_ref_t_end=TG3D_REF_T, finite=finite)
+    check(steps == 3, f"taylor_green3d: accepted {steps} steps, want 3")
+    check(finite, "taylor_green3d: non-finite vort/vel")
+    check(p.bc.bc_type == "FS" and not p.engine_ops.is_ns,
+          f"taylor_green3d: bc type {p.bc.bc_type}")
+    check(launches > 0 and launches == expected,
+          f"taylor_green3d: fused_apply launched {launches} times, the "
+          f"path made {expected} operator applications")
+    check(err <= TG3D_ERR_LIMIT, f"taylor_green3d: vorticity error "
+          f"{err:.3e} > {TG3D_ERR_LIMIT:.3e}")
+
+
+def phase_fdm(torch, dev):
+    """Cold two-stage solves of the flagship's system under pc="jacobi" and
+    pc="fdm" (the JAX bench's cold solve: solve_kle_local from zero
+    velocity, vorticity = curl of a numpy-seeded random velocity)."""
+    from pynama_tpu_torch.cases import Problem
+    from pynama_tpu_torch.engine.local_engine import curl, solve_kle_local
+    from pynama_tpu_torch.ops.fused import fused_apply
+    from pynama_tpu_torch.solver.fdm import fdm_apply
+
+    cfg = cavity_config((24, 24, 24), 4, 0.5, 0.01, [2, 0, 0], 2, 1.0)
+    out = {}
+    for dtype, rtol, maxiter in ((torch.float64, 1e-10, 4000),
+                                 (torch.float32, 1e-6, 1000)):
+        dname = str(dtype).split(".")[-1]
+        for pc in ("jacobi", "fdm"):
+            t0 = time.perf_counter()
+            p = Problem(cfg, device=dev, dtype=dtype, solver="cg",
+                        cg_rtol=rtol, cg_maxiter=maxiter, pc=pc)
+            p.setUp()
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            ops = p.engine_ops
+            check(ops.pc == pc, f"fdm: built pc={ops.pc}, asked {pc}")
+            rng = np.random.default_rng(0)
+            v = p.to_local(rng.standard_normal((p.mesh.n_nodes, p.dim)))
+            vort = curl(ops, v)
+            vel0 = torch.zeros_like(v)
+            stats = []
+            solve = lambda: solve_kle_local(ops, vort, vel0, 0.0, stats)[1]
+            vel = solve()
+            row = dict(setup_s=setup_s, setup_phases_s=p.setup_phases,
+                       iters_fs_main=[int(it) for it, _ in stats],
+                       loop_applies=[n for _, n in stats])
+            if dtype == torch.float32:
+                row["solve_ms"] = _median_ms(torch, solve, reps=3,
+                                             warmup=0)
+                r = ops.free_fs * v
+                per, counts, whole = _profile_record(
+                    torch, lambda: fused_apply(r, ops.KT, ops.nelem, ops.ngl,
+                                               ops.dim))
+                row["k1_ms"] = _median_ms(torch, lambda: fused_apply(
+                    r, ops.KT, ops.nelem, ops.ngl, ops.dim))
+                row.update(k1_device_us=sum(per.values()),
+                           k1_launches=sum(counts.values()),
+                           k1_profile_whole=whole)
+                if pc == "fdm":
+                    per, counts, whole = _profile_record(
+                        torch, lambda: fdm_apply(ops.fdm_fs, r,
+                                                 nelem=ops.nelem,
+                                                 ngl=ops.ngl))
+                    row["fdm_apply_ms"] = _median_ms(
+                        torch, lambda: fdm_apply(ops.fdm_fs, r,
+                                                 nelem=ops.nelem,
+                                                 ngl=ops.ngl))
+                    row.update(fdm_apply_device_us=sum(per.values()),
+                               fdm_apply_launches=sum(counts.values()),
+                               fdm_profile_whole=whole,
+                               fdm_apply_kernels={
+                                   k: [per[k], counts[k]] for k in per})
+            row["finite"] = bool(torch.isfinite(vel).all())
+            out[(dname, pc)] = (row, vel)
+            check(row["finite"], f"fdm {dname} {pc}: non-finite velocity")
+            del p, ops
+        rj, vj = out[(dname, "jacobi")]
+        rf, vf = out[(dname, "fdm")]
+        rel = float((vf - vj).abs().max() / vj.abs().max())
+        engine_s = {pc: out[(dname, pc)][0]["setup_phases_s"]["engine"]
+                    for pc in ("jacobi", "fdm")}
+        emit("fdm", config=f"cavity3d 24^3 ngl=4 {dname} cold two-stage "
+             f"solve, cg_rtol={rtol}", jacobi=rj, fdm=rf,
+             fdm_setup_s=engine_s["fdm"] - engine_s["jacobi"],
+             vel_rel_diff=rel, limit=FDM_AGREE_LIMIT
+             if dtype == torch.float64 else None)
+        if dtype == torch.float64:
+            check(rel <= FDM_AGREE_LIMIT, f"fdm f64: jacobi and fdm "
+                  f"velocities differ by {rel:.3e} > {FDM_AGREE_LIMIT}")
+            check(all(f < j for f, j in zip(rf["iters_fs_main"],
+                                            rj["iters_fs_main"])),
+                  f"fdm f64: iterations fdm {rf['iters_fs_main']} not fewer "
+                  f"than jacobi {rj['iters_fs_main']} on both stages")
+        for key in [k for k in out if k[0] == dname]:
+            out[key] = (out[key][0], None)
+        torch.cuda.empty_cache()
 
 
 def phase_cg_split(torch, p):
@@ -804,8 +1114,13 @@ def main() -> int:
     record = phase_kernels(torch, dev)
     decomp = phase_decomp(torch, dev)
     phase_parity(torch, dev)
-    launches, problem = phase_main(torch, dev)
+    launches, problem, t_main = phase_main(torch, dev)
     phase_cg_split(torch, problem)
+    phase_taylor_green3d(torch, dev)
+    phase_fdm(torch, dev)
+    # last: a window of ~25,000 kernels, after which the profiler has
+    # dropped records from later windows
+    phase_rhs_trace(torch, problem, t_main)
 
     record["launches"] = launches
     kernels = [("fused_apply", "fused_apply.cu", "pynama_tpu/ops/fused.py:180",

@@ -1,14 +1,11 @@
-"""Boundary-condition parsing and free/constrained dof masks (host numpy).
+"""Boundary-condition parsing, dof masks, and value application.
 
 Carried over from pynama_tpu/bc/conditions.py: classifies the problem as
-FS / NS / FS-NS and derives the dof masks the KLE solve consumes. The values
-are written on the device by the engine's BC writers
-(engine/local_engine.py), from constant buffers built here at setup.
-
-Analytic-function sides (`custom-func`) need the `functions/` libraries,
-which are not ported yet (ROADMAP Queue A item 5): they raise
-NotImplementedError. The global-layout value writers (`apply_velocity`
-and friends) are left out with the global-layout path that uses them.
+FS / NS / FS-NS and derives the dof masks the KLE solve consumes. Sides
+carry constant values or an analytic-function library (`custom-func`,
+`functions/`). The engine writes the values on the device in the local
+layout (engine/local_engine.py); `apply_velocity` and friends write them
+into global-layout fields, numpy arrays or tensors.
 
 The no-slip corner rule reproduces the reference: where a node would have
 both an x-normal (left/right) and a y-normal (down/up), the x-normal is
@@ -21,11 +18,10 @@ import math
 from typing import Optional
 
 import numpy as np
+import torch
 
+from pynama_tpu_torch.functions import get_function_lib
 from pynama_tpu_torch.mesh.box import SIDE_NORMAL_AXIS, border_names
-
-_FUNC_TODO = ("analytic-function ('custom-func') boundary sides need the "
-              "functions/ libraries, not ported yet (ROADMAP Queue A item 5)")
 
 
 @dataclasses.dataclass
@@ -35,6 +31,8 @@ class SideBC:
     nodes: np.ndarray              # (n_side,) int32
     velocity: Optional[np.ndarray] = None     # (dim,)
     vorticity: Optional[np.ndarray] = None    # (dim_w,)
+    func: Optional[object] = None             # analytic function module
+    coords: Optional[np.ndarray] = None       # (n_side, dim), for func sides
     #: outward-normal axis (mesh-provided)
     _normal_axis: Optional[int] = None
 
@@ -46,6 +44,18 @@ class SideBC:
             return SIDE_NORMAL_AXIS[self.name]
         raise ValueError(f"boundary '{self.name}' has no axis-aligned "
                          "outward normal")
+
+    def values(self, attr: str, t, nu):
+        """Boundary field values for 'velocity'/'vorticity', (n_side, c): a
+        CPU float64 tensor for a function side, numpy for a constant one."""
+        if self.func is not None:
+            a = self.func.alpha(nu, t)
+            return getattr(self.func, attr)(self.coords, a)
+        val = self.velocity if attr == "velocity" else self.vorticity
+        if val is None:
+            raise ValueError(f"{attr} not set on boundary {self.name}")
+        return np.tile(np.asarray(val, dtype=np.float64),
+                       (len(self.nodes), 1))
 
 
 class BoundaryConditions:
@@ -68,7 +78,10 @@ class BoundaryConditions:
             for name in names:
                 self._add_side(name, "free-slip", vals)
         elif "custom-func" in data:
-            raise NotImplementedError(_FUNC_TODO)
+            self.bc_type = "FS"
+            fn = data["custom-func"]["name"]
+            for name in names:
+                self._add_func_side(name, fn)
         elif "free-slip" in data and "no-slip" in data:
             self.bc_type = "FS-NS"
             self._per_side("free-slip", data["free-slip"])
@@ -85,8 +98,10 @@ class BoundaryConditions:
     def _per_side(self, kind, sides_dict):
         for name, vals in sides_dict.items():
             if isinstance(vals, dict) and "custom-func" in vals:
-                raise NotImplementedError(_FUNC_TODO)
-            self._add_side(name, kind, vals)
+                self._add_func_side(name, vals["custom-func"]["name"],
+                                    kind=kind)
+            else:
+                self._add_side(name, kind, vals)
 
     def _handle_uniform(self, u: dict) -> dict:
         """Uniform free-slip values, including the Reynolds-number form."""
@@ -121,6 +136,14 @@ class BoundaryConditions:
         else:
             for attr, v in vals.items():
                 setattr(side, attr, np.asarray(v, dtype=np.float64))
+        self.sides.append(side)
+
+    def _add_func_side(self, name, func_name, kind="free-slip"):
+        nodes = self.mesh.border_nodes(name)
+        side = SideBC(name=name, kind=kind, nodes=nodes,
+                      func=get_function_lib(func_name),
+                      coords=self.mesh.coords[nodes],
+                      _normal_axis=self._mesh_normal_axis(name))
         self.sides.append(side)
 
     # ------------------------------------------------------------------ masks
@@ -165,3 +188,50 @@ class BoundaryConditions:
     @property
     def needs_fs_stage(self) -> bool:
         return self.bc_type in ("NS", "FS-NS")
+
+    # ------------------------------------------------------------ application
+    def apply_velocity(self, vel, t=0.0, nu=1.0):
+        """Set velocity values on every boundary's nodes, all components,
+        sides in order (setValuesToVec). `vel` is an (n_nodes, dim) numpy
+        array or tensor; the result is a new one of the same kind."""
+        for s in self.sides:
+            vel = _set_rows(vel, s.nodes, s.values("velocity", t, nu))
+        return vel
+
+    def apply_vorticity(self, vort, t=0.0, nu=1.0):
+        for s in self.sides:
+            vort = _set_rows(vort, s.nodes, s.values("vorticity", t, nu))
+        return vort
+
+    def apply_tangential(self, vel, t=0.0, nu=1.0):
+        """Impose tangential velocity on no-slip walls after the FS-stage
+        solve (setTangentialValuesToVec)."""
+        for s in self.sides:
+            if s.kind != "no-slip":
+                continue
+            vals = s.values("velocity", t, nu)
+            for d in range(self.dim):
+                if d != s.normal_axis:
+                    vel = _set_rows(vel, s.nodes, vals[:, d], col=d)
+        return vel
+
+
+def _set_rows(arr, nodes, vals, col=None):
+    """A copy of `arr` with rows `nodes` (all columns, or column `col`) set
+    to `vals`; numpy in, numpy out; a tensor in, a tensor on its device."""
+    if isinstance(arr, torch.Tensor):
+        out = arr.clone()
+        idx = torch.as_tensor(nodes, dtype=torch.int64, device=arr.device)
+        v = torch.as_tensor(vals).to(dtype=arr.dtype, device=arr.device)
+        if col is None:
+            out[idx] = v.reshape(len(nodes), -1)
+        else:
+            out[idx, col] = v
+        return out
+    out = np.array(arr)
+    v = np.asarray(vals)
+    if col is None:
+        out[nodes, :] = v.reshape(len(nodes), -1)
+    else:
+        out[nodes, col] = v
+    return out

@@ -9,10 +9,14 @@ State `vort`/`vel` is kept in the global node layout (n_nodes, ncomp) on the
 device, as in the JAX package; the transient converts it to the local
 layout at its start and back at its end.
 
-Left out until their ROADMAP items: analytic-function initial conditions
-(item 5), the global-layout Operators/KLESolver with the direct and GMRES
-solvers and the verification sweeps (item 10), IO and the CLI (item 11),
-gmsh meshes (item 12) and sharded runs (item 14).
+Analytic-function (`custom-func`) boundary and initial conditions take
+the `functions/` libraries; `exact_fields` evaluates the case's `tests`
+library. The preconditioner is the `pc` option ("jacobi" by default, or
+"fdm" for cold and one-shot solves).
+
+Left out until their ROADMAP items: the global-layout Operators/KLESolver
+with the direct and GMRES solvers and the verification sweeps (item 10),
+IO and the CLI (item 11), gmsh meshes (item 12) and sharded runs (item 14).
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from pynama_tpu_torch.engine.local_engine import (apply_vorticity_bc,
                                                   build_engine, rhs_local,
                                                   rk_error_norm,
                                                   solve_kle_local)
+from pynama_tpu_torch.functions import get_function_lib
 from pynama_tpu_torch.mesh import BoxMesh
 from pynama_tpu_torch.ops import local as L
 from pynama_tpu_torch.solver.timestep import adaptive_solve
@@ -135,7 +140,12 @@ class Problem:
             device=self.device, dtype=self.dtype,
             cg_rtol=self.opts.get("cg_rtol", cfg.cg_rtol),
             cg_atol=self.opts.get("cg_atol", cfg.cg_atol),
-            cg_maxiter=self.opts.get("cg_maxiter", cfg.cg_maxiter))
+            cg_maxiter=self.opts.get("cg_maxiter", cfg.cg_maxiter),
+            # Jacobi by default: FDM wins cold solves but costs ~2x per
+            # iteration, which the warm-started RK stages do not pay back
+            # (the JAX package's measurement); request pc="fdm" for cold
+            # and one-shot solves
+            pc=self.opts.get("pc", "jacobi"))
 
     # ------------------------------------------------- local layout shuttles
     def to_local(self, x) -> torch.Tensor:
@@ -151,22 +161,44 @@ class Problem:
             t = t.detach().cpu().numpy()
         return L.to_global(self.mesh, t, ncomp)
 
+    def _coords64(self) -> torch.Tensor:
+        """Node coordinates on the device in float64 (analytic fields are
+        evaluated in float64 and then cast, as the reference does)."""
+        return torch.as_tensor(self.mesh.coords, dtype=torch.float64,
+                               device=self.device)
+
     def _initial_conditions(self):
-        """Constant initial fields (reference setUpInitialConditions)."""
+        """Initial fields (reference setUpInitialConditions): constant, or
+        an analytic-function library at the start time."""
         n = self.mesh.n_nodes
         kw = dict(dtype=self.dtype, device=self.device)
         vort = torch.zeros((n, self.dim_w), **kw)
         vel = torch.zeros((n, self.dim), **kw)
         ic = self.config.get("initial-conditions", {})
         if "custom-func" in ic:
-            raise NotImplementedError(
-                "analytic-function initial conditions need the functions/ "
-                "libraries, not ported yet (ROADMAP Queue A item 5)")
-        if "velocity" in ic and "vorticity" not in ic:
+            lib = get_function_lib(ic["custom-func"]["name"])
+            a = lib.alpha(self.nu, self.start_time)
+            coords = self._coords64()
+            vel = lib.velocity(coords, a).to(self.dtype)
+            vort = lib.vorticity(coords, a).to(self.dtype)
+        elif "velocity" in ic and "vorticity" not in ic:
             vel = torch.as_tensor(ic["velocity"], **kw).tile((n, 1))
         elif "vorticity" in ic:
             vort = torch.as_tensor(ic["vorticity"], **kw).tile((n, 1))
         return vort, vel
+
+    def exact_fields(self, time, names=("velocity", "vorticity")):
+        """Exact analytic fields at `time` from the case's `tests` library
+        (generateExactVecs), (n_nodes, c) tensors on the device."""
+        lib = get_function_lib(self.config["tests"]["custom-func"]["name"])
+        a = lib.alpha(self.nu, time)
+        coords = self._coords64()
+        out = []
+        for name in names:
+            fn = getattr(lib, name)
+            args = (self.nu,) if name == "diffusive" else ()
+            out.append(fn(coords, a, *args).to(self.dtype))
+        return out
 
     # ------------------------------------------------------------------- RHS
     def solve_kle(self, vort, vel, t=None):

@@ -7,8 +7,10 @@ functions need.
 
 Pipeline per RHS evaluation (reference evalRHS):
 
-    BC write  : dense-mask merge with a constant value buffer
-    KLE solve : matrix-free PCG on DSS(x @ K^T) with a Jacobi preconditioner
+    BC write  : dense-mask merge with a value buffer (constant sides baked
+                in, analytic-function sides evaluated and scattered on top)
+    KLE solve : matrix-free PCG on DSS(x @ K^T), preconditioned by the
+                assembled diagonal (Jacobi) or fast diagonalization (FDM)
     operators : curl/SrT/DivSrT as DSS(x @ matT) + winv scaling
     v (x) v   : component extraction/packing via column gathers
 
@@ -23,27 +25,45 @@ combines consistent vectors linearly.
 The boundary-condition semantics mirror the reference: velocity/vorticity
 values are written on all components of every boundary node before each
 solve; tangential values are re-imposed on no-slip walls after the
-free-slip stage.
+free-slip stage. Constant sides are merged in declaration order into the
+constant buffers; analytic-function sides are scattered on top of them,
+each in its turn, so a function side wins a shared corner.
 
-Left out until their ROADMAP items: analytic-function BC sides (item 5),
-the FDM and Schwarz preconditioners and GMRES (items 9-10), sum
-factorization (item 12) and sharding (item 14).
+Left out until their ROADMAP items: GMRES (item 10), sum factorization
+(item 12) and sharding (item 14). The Schwarz preconditioner is an option
+the port leaves out.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
+from typing import Optional
 
 import numpy as np
 import torch
 
+from pynama_tpu_torch.functions import get_function_lib
 from pynama_tpu_torch.ops import local as L
 from pynama_tpu_torch.ops.fused import fused_apply
 from pynama_tpu_torch.solver.cg import pcg
+from pynama_tpu_torch.solver.fdm import FDMOps, build_fdm, fdm_apply
+
+logger = logging.getLogger("pynama_tpu_torch.engine")
 
 
 # ---------------------------------------------------------------------------
 # operator bundle
 # ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class FuncSide:
+    """Analytic-function boundary side (time-dependent values)."""
+    coords: torch.Tensor          # (k, dim) slot coordinates, engine dtype
+    rows: torch.Tensor            # (k,) slot row ids into the (E*nn) axis
+    func_name: str
+    kind: str
+    normal_axis: int
+
 
 @dataclasses.dataclass(frozen=True)
 class EngineOps:
@@ -90,6 +110,14 @@ class EngineOps:
     cg_rtol: float
     cg_atol: float
     cg_maxiter: int
+    #: analytic-function sides, scattered in order over the constant values
+    func_sides: tuple = ()
+    #: preconditioner: "jacobi" (assembled diagonal) or "fdm" (fast
+    #: diagonalization; wins cold and one-shot solves)
+    pc: str = "jacobi"
+    #: FDM data per masked system; None unless pc == "fdm"
+    fdm_main: Optional[FDMOps] = None
+    fdm_fs: Optional[FDMOps] = None
 
     @property
     def nn(self):
@@ -178,9 +206,11 @@ def _engine_arrays(mesh, bc, em_K, em_Rw, op_curl, op_srt, op_div,
             for d in range(dim):
                 if d != s.normal_axis:
                     mtang[s.nodes, d] = 1.0
-                    ctang[s.nodes, d] = s.velocity[d]
-        cvel[s.nodes, :] = s.velocity
-        cvort[s.nodes, :] = s.vorticity
+                    if s.func is None:
+                        ctang[s.nodes, d] = s.velocity[d]
+        if s.func is None:
+            cvel[s.nodes, :] = s.velocity
+            cvort[s.nodes, :] = s.vorticity
     for key, a in (("mask_vel", mvel), ("mask_vort", mvort),
                    ("mask_tang", mtang), ("const_vel", cvel),
                    ("const_vort", cvort), ("const_tang", ctang)):
@@ -197,12 +227,35 @@ def _engine_arrays(mesh, bc, em_K, em_Rw, op_curl, op_srt, op_div,
     return out
 
 
+def _engine_func_sides(mesh, bc) -> list:
+    """FuncSide per analytic-function side, numpy: the coordinates and row
+    ids of every element slot of the side's nodes."""
+    n_nodes = mesh.n_nodes
+    flat = np.asarray(mesh.cell_nodes).ravel()
+    out = []
+    for s in bc.sides:
+        if s.func is None:
+            continue
+        onside = np.zeros(n_nodes, dtype=bool)
+        onside[s.nodes] = True
+        rows = np.where(onside[flat])[0]
+        out.append(FuncSide(
+            coords=mesh.coords[flat[rows]], rows=rows,
+            func_name=s.func.__name__.rsplit(".", 1)[-1], kind=s.kind,
+            normal_axis=int(s.normal_axis)))
+    return out
+
+
 def ops_from_numpy(arrays: dict, *, ngl, nelem, dim, dim_w, dim_s, is_ns,
-                   cg_rtol, cg_atol, cg_maxiter, device,
-                   dtype) -> EngineOps:
+                   cg_rtol, cg_atol, cg_maxiter, device, dtype,
+                   func_sides=(), pc="jacobi", fdm_main=None,
+                   fdm_fs=None) -> EngineOps:
     """EngineOps from numpy arrays keyed by ARRAY_FIELDS (the fields of the
     JAX package's EngineOps carry over one to one). Float arrays are cast to
-    `dtype`, index arrays to int64, scalars to Python floats."""
+    `dtype`, index arrays to int64, scalars to Python floats. `func_sides`
+    holds objects with the FuncSide fields whose arrays numpy can read
+    (either package's FuncSide); `fdm_main`/`fdm_fs` are the port's FDMOps
+    on `device`."""
     def f(key):
         return torch.as_tensor(np.array(arrays[key]),
                                dtype=dtype, device=device)
@@ -219,6 +272,11 @@ def ops_from_numpy(arrays: dict, *, ngl, nelem, dim, dim_w, dim_s, is_ns,
             inv_mult=f(f"lay_{fam}.inv_mult"), ngl=int(ngl), nelem=nelem,
             ncomp=int(ncomp))
 
+    fsides = tuple(FuncSide(
+        coords=torch.as_tensor(np.array(fs.coords), dtype=dtype,
+                               device=device),
+        rows=idx(fs.rows), func_name=str(fs.func_name), kind=str(fs.kind),
+        normal_axis=int(fs.normal_axis)) for fs in func_sides)
     return EngineOps(
         KT=f("KT"), RwT=f("RwT"), curlT=f("curlT"), srtT=f("srtT"),
         divT=f("divT"),
@@ -233,27 +291,54 @@ def ops_from_numpy(arrays: dict, *, ngl, nelem, dim, dim_w, dim_s, is_ns,
         nu=float(arrays["nu"]),
         ngl=int(ngl), nelem=nelem, dim=int(dim), dim_w=int(dim_w),
         dim_s=int(dim_s), is_ns=bool(is_ns), cg_rtol=float(cg_rtol),
-        cg_atol=float(cg_atol), cg_maxiter=int(cg_maxiter))
+        cg_atol=float(cg_atol), cg_maxiter=int(cg_maxiter),
+        func_sides=fsides, pc=pc, fdm_main=fdm_main, fdm_fs=fdm_fs)
 
 
 def build_engine(mesh, bc, em_K, em_Rw, op_curl, op_srt, op_div, op_weight,
                  rho, mu, *, device, dtype, cg_rtol=1e-12, cg_atol=0.0,
-                 cg_maxiter=2000) -> EngineOps:
-    """Assemble EngineOps from setup-time numpy data (box mesh, Jacobi CG).
+                 cg_maxiter=2000, pc="jacobi", krylov="cg") -> EngineOps:
+    """Assemble EngineOps from setup-time numpy data (box mesh, PCG).
 
     em_*/op_* are the dense element matrices from `elements/kle.py`;
     op_weight is the per-local-node quadrature weight used for lumping.
+    pc="fdm" builds the fast-diagonalization data of both masked systems
+    (numpy setup, tensors on `device`); as in the reference, pc falls back
+    to "jacobi" when `build_fdm` finds no tensor structure.
     """
     if not getattr(mesh, "is_box", False):
         raise NotImplementedError("unstructured meshes are not ported yet "
                                   "(ROADMAP Queue A item 12)")
+    if krylov != "cg":
+        raise NotImplementedError(f"krylov='{krylov}' is not ported yet "
+                                  "(GMRES: ROADMAP Queue A item 10)")
+    if pc == "schwarz":
+        raise NotImplementedError(
+            "pc='schwarz' is an option the port leaves out: it measured "
+            "2.7x more CG iterations than Jacobi in the JAX package "
+            "(ROADMAP Queue A, options left out)")
+    if pc not in ("jacobi", "fdm"):
+        raise ValueError(f"unknown preconditioner '{pc}'")
     arrays = _engine_arrays(mesh, bc, em_K, em_Rw, op_curl, op_srt, op_div,
                             op_weight, rho, mu)
+    fdm_main = fdm_fs = None
+    if pc == "fdm":
+        diag_g = L.to_global(mesh, arrays["diag"], mesh.dim)
+        kw = dict(device=device, dtype=dtype, diag_global=diag_g)
+        fdm_main = build_fdm(mesh, bc.free_main, **kw)
+        fdm_fs = build_fdm(mesh, bc.free_fs, **kw) \
+            if bc.needs_fs_stage else None
+        if fdm_main is None:
+            logger.warning("pc='fdm': the free-dof mask has no tensor "
+                           "structure to diagonalize; using pc='jacobi' "
+                           "(the reference's rule)")
+            pc, fdm_fs = "jacobi", None
     return ops_from_numpy(
         arrays, ngl=mesh.ngl, nelem=mesh.nelem, dim=mesh.dim,
         dim_w=mesh.dim_w, dim_s=mesh.dim_s, is_ns=bc.needs_fs_stage,
         cg_rtol=cg_rtol, cg_atol=cg_atol, cg_maxiter=cg_maxiter,
-        device=device, dtype=dtype)
+        device=device, dtype=dtype, func_sides=_engine_func_sides(mesh, bc),
+        pc=pc, fdm_main=fdm_main, fdm_fs=fdm_fs)
 
 
 # ---------------------------------------------------------------------------
@@ -262,12 +347,22 @@ def build_engine(mesh, bc, em_K, em_Rw, op_curl, op_srt, op_div, op_weight,
 
 def _value_buffer(ops: EngineOps, time, attr: str,
                   const: torch.Tensor | None = None) -> torch.Tensor:
-    """(E, nnc) buffer holding boundary values on boundary slots. Only
-    constant sides exist in the port so far, so this is the constant
-    buffer; analytic-function sides come with ROADMAP item 5."""
+    """(E, nnc) buffer holding boundary values on boundary slots.
+
+    Constant sides are baked in; analytic-function sides are evaluated on
+    their slot coordinates (on the device; alpha is a host float, so no
+    sync) and written on top, one side after the other in side order."""
     if const is None:
         const = ops.const_vel if attr == "velocity" else ops.const_vort
-    return const
+    if not ops.func_sides:
+        return const
+    ncomp = ops.dim if attr == "velocity" else ops.dim_w
+    U = const.reshape(-1, ncomp).clone()
+    for fs in ops.func_sides:
+        lib = get_function_lib(fs.func_name)
+        a = lib.alpha(ops.nu, time)
+        U[fs.rows] = getattr(lib, attr)(fs.coords, a).to(U.dtype)
+    return U.reshape(const.shape)
 
 
 def apply_velocity_bc(ops: EngineOps, vel, time):
@@ -339,10 +434,11 @@ def vtensv(ops: EngineOps, vel):
 # solves
 # ---------------------------------------------------------------------------
 
-def _masked_solve(ops: EngineOps, free, vort, vel, stats=None):
+def _masked_solve(ops: EngineOps, free, vort, vel, stats=None, fdm=None):
     """Solve the Dirichlet-condensed KLE system on the free subspace with
-    Jacobi-preconditioned CG. `stats`, when a list, gets the solve's
-    (iters, loop_applies) (see solver/cg.py CGResult)."""
+    preconditioned CG (FDM when ops.pc == "fdm" and `fdm` is given, else
+    Jacobi). `stats`, when a list, gets the solve's (iters, loop_applies)
+    (see solver/cg.py CGResult)."""
     con = 1.0 - free
     vc = con * vel
     b = free * (_apply_mat(ops, ops.lay_v, vort, ops.RwT)
@@ -360,12 +456,21 @@ def _masked_solve(ops: EngineOps, free, vort, vel, stats=None):
         a bitwise-identical trajectory."""
         return free * apply_K(ops, v)
 
-    # the Jacobi divide maps zeros to zeros, so z keeps the constrained
-    # dofs at exactly zero (the contract the A0/A split rests on)
-    dmask = free * ops.diag + con
+    # CONTRACT for every M_inv below: z = M_inv(r) keeps exact zeros on
+    # the constrained dofs (z_con == 0 whenever r_con == 0). The A0/A split
+    # above rests on it: the in-loop operator drops the input mask and the
+    # `con*v` passthrough because every loop vector stays exactly zero
+    # there. FDM masks with `free` and re-adds `con*r`; the Jacobi divide
+    # maps zeros to zeros.
+    if ops.pc == "fdm" and fdm is not None:
+        def M_inv(r):
+            z = fdm_apply(fdm, free * r, nelem=ops.nelem, ngl=ops.ngl)
+            return free * z + con * r
+    else:
+        dmask = free * ops.diag + con
 
-    def M_inv(r):
-        return r / dmask
+        def M_inv(r):
+            return r / dmask
 
     res = pcg(A, b, free * vel + vc, M_inv=M_inv,
               rtol=ops.cg_rtol, atol=ops.cg_atol,
@@ -382,10 +487,12 @@ def solve_kle_local(ops: EngineOps, vort, vel, time, stats=None):
     vort = apply_vorticity_bc(ops, vort, time)
     vel = apply_velocity_bc(ops, vel, time)
     if ops.is_ns:
-        vel_fs = _masked_solve(ops, ops.free_fs, vort, vel, stats)
+        vel_fs = _masked_solve(ops, ops.free_fs, vort, vel, stats,
+                               fdm=ops.fdm_fs)
         vel_fs = apply_tangential_bc(ops, vel_fs, time)
         vort = curl(ops, vel_fs)
-    vel = _masked_solve(ops, ops.free_main, vort, vel, stats)
+    vel = _masked_solve(ops, ops.free_main, vort, vel, stats,
+                        fdm=ops.fdm_main)
     return vort, vel
 
 

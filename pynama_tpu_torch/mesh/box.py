@@ -8,9 +8,8 @@ once at setup.
 Border naming keeps the reference convention: left/right = x min/max,
 down/up = y min/max, back/front = z min/max.
 
-Left out until the global-layout path is ported: `incidence` (the fan-in
-table of the global-layout operators) and the IBM helpers
-(`node_separation`, `nodes_over_line`).
+Left out until the IBM cases are ported: `node_separation` and
+`nodes_over_line`.
 """
 from __future__ import annotations
 
@@ -31,6 +30,28 @@ SIDE_IS_MAX = {"left": False, "right": True, "down": False, "up": True,
 def border_names(dim: int) -> list[str]:
     return (["down", "right", "up", "left"] if dim == 2
             else ["back", "front", "down", "up", "right", "left"])
+
+
+def build_incidence(cell_nodes: np.ndarray, n_nodes: int) -> np.ndarray:
+    """(n_nodes, max_fanin) indices into the flattened (n_cells*nnode_el)
+    element-slot array, padded with n_cells*nnode_el (a zero slot).
+
+    Column 0 is each node's lowest flat slot (a stable argsort), the
+    representative slot the FDM preconditioner's gather path reads.
+    """
+    n_cells, nnode_el = cell_nodes.shape
+    flat = cell_nodes.ravel()
+    order = np.argsort(flat, kind="stable")
+    sorted_nodes = flat[order]
+    counts = np.bincount(sorted_nodes, minlength=n_nodes)
+    kmax = int(counts.max())
+    pad = n_cells * nnode_el
+    inc = np.full((n_nodes, kmax), pad, dtype=np.int32)
+    starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
+    for k in range(kmax):
+        mask = counts > k
+        inc[mask, k] = order[starts[mask] + k]
+    return inc
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,6 +175,12 @@ class BoxMesh:
 
     def border_normal_axis(self, name: str) -> int:
         return SIDE_NORMAL_AXIS[name]
+
+    @cached_property
+    def incidence(self) -> np.ndarray:
+        """(n_nodes, max_fanin) element-slot fan-in table (<= 2**dim for a
+        structured mesh); see `build_incidence`."""
+        return build_incidence(self.cell_nodes, self.n_nodes)
 
     # -- boundaries -------------------------------------------------------
     @cached_property

@@ -1,10 +1,14 @@
 """Port parity: pynama_tpu_torch.engine against pynama_tpu.engine.
 
-Both engines run the same operator: the JAX EngineOps is handed to the port
-through `ops_from_numpy`. Operator applications and BC writers agree to
-1e-12 relative (float64; only matmul summation order differs), the KLE
-solve to 1e-8 and the right-hand side to 1e-7 — the tolerances of
-tests/test_engine.py. CG iteration counts: see test_solve_kle_matches.
+Both engines run the same operator: the JAX EngineOps, its analytic-
+function sides included, is handed to the port through `ops_from_numpy`.
+Operator applications and BC writers agree to 1e-12 relative (float64; only
+matmul summation order differs). On the no-slip cavities the KLE solve
+agrees to 1e-8 and the right-hand side to 1e-7, the tolerances of
+tests/test_engine.py (CG iteration counts: see test_solve_kle_matches); on
+the analytic-function cases (Taylor-Green 2D and 3D, the flat plate with
+mixed free-slip/no-slip walls at t0 = 0.1, where tau > 0) both agree to
+1e-12.
 """
 import dataclasses
 
@@ -24,8 +28,37 @@ from test_engine import cavity_config
 torch.set_num_threads(1)
 
 F64 = torch.float64
-CASES = {"2d": dict(ngl=3, nelem=6, dim=2), "3d": dict(ngl=3, nelem=2, dim=3)}
 OPTS = dict(solver="cg", cg_rtol=1e-13, cg_maxiter=4000)
+
+
+def func_config(lib, nelem, ngl, dim, t0=0.0, bc=None):
+    """An analytic-function case: `lib` on every side (or the sides of
+    `bc`), as initial condition and as the exact solution."""
+    zero = [0] * dim
+    cf = {"custom-func": {"name": lib}}
+    return {
+        "name": lib,
+        "material-properties": {"rho": 0.5, "mu": 0.01},
+        "domain": {"ngl": ngl, "box-mesh": {
+            "nelem": [nelem] * dim, "lower": zero, "upper": [1] * dim}},
+        "time-solver": {"start-time": t0, "end-time": 1.0, "max-steps": 10},
+        "boundary-conditions": bc or cf,
+        "initial-conditions": cf, "tests": cf}
+
+
+_FP = {"custom-func": {"name": "flat_plate"}}
+#: name -> (config, time of the solves); the analytic-function cases are
+#: exact to 1e-12 (FUNC_CASES), the cavities to the engine test's limits
+CASES = {
+    "2d": (cavity_config(ngl=3, nelem=6, dim=2), 0.0),
+    "3d": (cavity_config(ngl=3, nelem=2, dim=3), 0.0),
+    "tg2d": (func_config("taylor_green", 4, 3, 2), 0.0),
+    "tg3d": (func_config("taylor_green3d", 2, 3, 3), 0.0),
+    "fsns": (func_config("flat_plate", 4, 3, 2, t0=0.1, bc={
+        "no-slip": {"down": [0, 1]},
+        "free-slip": {"left": _FP, "right": _FP, "up": _FP}}), 0.1),
+}
+FUNC_CASES = ("tg2d", "tg3d", "fsns")
 
 
 def _arrays(ops) -> dict:
@@ -48,7 +81,8 @@ def _port_ops(jops):
         _arrays(jops), ngl=jops.ngl, nelem=jops.nelem, dim=jops.dim,
         dim_w=jops.dim_w, dim_s=jops.dim_s, is_ns=jops.is_ns,
         cg_rtol=jops.cg_rtol, cg_atol=jops.cg_atol,
-        cg_maxiter=jops.cg_maxiter, device="cpu", dtype=F64)
+        cg_maxiter=jops.cg_maxiter, device="cpu", dtype=F64,
+        func_sides=jops.func_sides)
 
 
 _CACHE = {}
@@ -57,7 +91,7 @@ _CACHE = {}
 def _case(name):
     """(JAX Problem, port ops fed from its EngineOps) for one config."""
     if name not in _CACHE:
-        pj = JProblem(cavity_config(**CASES[name]), **OPTS)
+        pj = JProblem(CASES[name][0], **OPTS)
         pj.setUp()
         _CACHE[name] = (pj, _port_ops(pj.engine_ops))
     return _CACHE[name]
@@ -80,16 +114,25 @@ def test_build_engine_matches(name):
     """The port's own numpy setup builds the operator the JAX package
     builds, array for array."""
     pj, _ = _case(name)
-    pt = TProblem(cavity_config(**CASES[name]), device="cpu", dtype=F64,
-                  **OPTS)
+    pt = TProblem(CASES[name][0], device="cpu", dtype=F64, **OPTS)
     pt.setUp()
     got, want = _arrays(pt.engine_ops), _arrays(pj.engine_ops)
     assert set(got) == set(want)
     for key in want:
         assert got[key].shape == want[key].shape, key
         assert _rel(got[key], want[key]) <= 1e-14, key
-    for attr in ("ngl", "nelem", "dim", "dim_w", "dim_s", "is_ns"):
+    for attr in ("ngl", "nelem", "dim", "dim_w", "dim_s", "is_ns", "pc"):
         assert getattr(pt.engine_ops, attr) == getattr(pj.engine_ops, attr)
+    fts, fjs = pt.engine_ops.func_sides, pj.engine_ops.func_sides
+    assert len(fts) == len(fjs) == (4 if name == "tg2d" else 6
+                                    if name == "tg3d" else 3
+                                    if name == "fsns" else 0)
+    for ft, fj in zip(fts, fjs):
+        assert (ft.func_name, ft.kind, ft.normal_axis) \
+            == (fj.func_name, fj.kind, fj.normal_axis)
+        np.testing.assert_array_equal(ft.rows.numpy(), np.asarray(fj.rows))
+        np.testing.assert_array_equal(ft.coords.numpy(),
+                                      np.asarray(fj.coords))
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -120,14 +163,17 @@ def test_bc_writers_match(name, writer):
     pj, tops = _case(name)
     vel, vort = _fields(pj, 3)
     x = vort if writer == "apply_vorticity_bc" else vel
-    want = getattr(JE, writer)(pj.engine_ops, jnp.asarray(x), 0.3)
-    got = getattr(TE, writer)(tops, torch.as_tensor(x), 0.3)
+    t = CASES[name][1] + 0.3
+    want = getattr(JE, writer)(pj.engine_ops, jnp.asarray(x), t)
+    got = getattr(TE, writer)(tops, torch.as_tensor(x), t)
     assert _rel(got.numpy(), want) <= 1e-12
 
 
-def _solve_both(pj, tops, vel, vort, monkeypatch, **override):
-    """solve_kle_local in both packages -> (vel_jax, vel_port, iters_jax,
-    stats_port); `override` replaces EngineOps CG settings in both."""
+def _solve_both(name, vel, vort, monkeypatch, **override):
+    """solve_kle_local in both packages at the case's time -> (vel_jax,
+    vel_port, iters_jax, stats_port); `override` replaces EngineOps CG
+    settings in both."""
+    pj, tops = _case(name)
     jops = dataclasses.replace(pj.engine_ops, **override)
     tops = dataclasses.replace(tops, **override)
     jiters = []
@@ -139,11 +185,11 @@ def _solve_both(pj, tops, vel, vort, monkeypatch, **override):
         return res
 
     monkeypatch.setattr(JE, "pcg", recording_pcg)
-    _, vj = JE.solve_kle_local(jops, jnp.asarray(vort), jnp.asarray(vel),
-                               0.0)
+    t = CASES[name][1]
+    _, vj = JE.solve_kle_local(jops, jnp.asarray(vort), jnp.asarray(vel), t)
     stats = []
     _, vt = TE.solve_kle_local(tops, torch.as_tensor(vort),
-                               torch.as_tensor(vel), 0.0, stats)
+                               torch.as_tensor(vel), t, stats)
     return vj, vt, jiters, stats
 
 
@@ -160,12 +206,13 @@ def test_solve_kle_matches(name, monkeypatch):
     1e-13. The
     counts must agree within 3% (at least +-1); that the two packages run
     the same iteration is pinned by test_solve_kle_same_iterates."""
-    pj, tops = _case(name)
+    pj, _ = _case(name)
     vel, vort = _fields(pj, 4)
-    vj, vt, jiters, stats = _solve_both(pj, tops, vel, vort, monkeypatch)
-    assert _rel(vt.numpy(), vj) <= 1e-8
+    vj, vt, jiters, stats = _solve_both(name, vel, vort, monkeypatch)
+    assert _rel(vt.numpy(), vj) <= (1e-12 if name in FUNC_CASES else 1e-8)
     titers = [int(it) for it, _ in stats]
-    assert len(titers) == len(jiters) == 2          # FS stage + main stage
+    # FS stage + main stage on no-slip problems, the main stage alone else
+    assert len(titers) == len(jiters) == (2 if pj.engine_ops.is_ns else 1)
     assert all(abs(a - b) <= max(1, 0.03 * b)
                for a, b in zip(titers, jiters)), (titers, jiters)
     assert all(n >= int(it) for it, n in stats)
@@ -175,12 +222,13 @@ def test_solve_kle_matches(name, monkeypatch):
 def test_solve_kle_same_iterates(name, monkeypatch):
     """Capped at 10 iterations (before rounding differences grow), both
     packages reach the same iterate: the port's CG is the reference's."""
-    pj, tops = _case(name)
+    pj, _ = _case(name)
     vel, vort = _fields(pj, 4)
-    vj, vt, jiters, stats = _solve_both(pj, tops, vel, vort, monkeypatch,
+    vj, vt, jiters, stats = _solve_both(name, vel, vort, monkeypatch,
                                         cg_rtol=1e-30, cg_maxiter=10)
-    assert jiters == [10, 10]
-    assert [int(it) for it, _ in stats] == [10, 10]
+    want = [10, 10] if pj.engine_ops.is_ns else [10]
+    assert jiters == want
+    assert [int(it) for it, _ in stats] == want
     assert _rel(vt.numpy(), vj) <= 1e-12
 
 
@@ -232,12 +280,14 @@ def test_rhs_matches(name):
     pj, tops = _case(name)
     _, vort = _fields(pj, 5)
     vel = np.zeros((pj.mesh.n_cells, pj.mesh.nnode_el * pj.dim))
-    fj, vj = JE.rhs_local(pj.engine_ops, 0.0, jnp.asarray(vort),
+    t = CASES[name][1]
+    fj, vj = JE.rhs_local(pj.engine_ops, t, jnp.asarray(vort),
                           jnp.asarray(vel))
-    ft, vt = TE.rhs_local(tops, 0.0, torch.as_tensor(vort),
+    ft, vt = TE.rhs_local(tops, t, torch.as_tensor(vort),
                           torch.as_tensor(vel))
-    assert _rel(ft.numpy(), fj) <= 1e-7
-    assert _rel(vt.numpy(), vj) <= 1e-7
+    tol = 1e-12 if name in FUNC_CASES else 1e-7
+    assert _rel(ft.numpy(), fj) <= tol
+    assert _rel(vt.numpy(), vj) <= tol
     ej = JE.rk_error_norm(pj.engine_ops, fj)
     et = TE.rk_error_norm(tops, ft)
-    assert abs(float(et) - float(ej)) <= 1e-7 * float(ej)
+    assert abs(float(et) - float(ej)) <= tol * float(ej)

@@ -112,12 +112,6 @@ def test_bc_masks_match(ngl, nelem, kind):
         assert sa.normal_axis == sb.normal_axis
 
 
-def test_custom_func_bc_not_ported():
-    mesh = TBox.create(3, (2, 2), [0, 0], [1, 1])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TBC(mesh, {"custom-func": {"name": "taylor_green"}})
-
-
 def test_port_never_imports_jax():
     """Every submodule of the port imports without jax or pynama_tpu."""
     code = ("import importlib, pkgutil, sys, pynama_tpu_torch as p; "
