@@ -70,16 +70,22 @@ exits non-zero without the final result line:
             field at the end time, which must be <= TG3D_ERR_LIMIT
 8. fdm      the flagship's config built with pc="jacobi" and pc="fdm", one
             cold two-stage solve each from the curl of a numpy-seeded random
-            velocity: in f64 (CG rtol 1e-10) the velocities agree to 1e-6
-            and FDM takes fewer iterations on both stages; in f32 (rtol
-            1e-6) a record: iterations, CUDA-event ms per solve (median of
-            3), the FDM apply's device µs and launches per call beside K1's,
-            and the FDM setup seconds
+            velocity, K1's launches in it against the expected count: in
+            f64 (CG rtol 1e-10) the velocities agree to 1e-6 and FDM takes
+            fewer iterations on both stages; in f32 (rtol 1e-6) a record:
+            iterations, CUDA-event ms per solve (median of 3), and per call
+            of the FDM apply and of K1 the event ms and, from one call
+            captured in a CUDA graph, its kernel and copy nodes and the
+            device µs of graph replays (`_graph_record`); the FDM apply's
+            per-mode block step alone, broadcast against einsum; the FDM
+            setup seconds
 9. rhs_trace one warm rhs_local of the flagship after phase 5's steps,
             timed untraced (median of 3) and traced once with
             torch.profiler: the device-busy, K1 and other-kernel (CG
-            vectors, BC writes, vtensv) shares of its untraced wall time,
-            K1's launches against 2 per operator application
+            vectors, BC writes, vtensv) shares of its untraced wall time;
+            K1's launches in the trace must be 2 per operator application
+            (a trace short of them lost records and is taken again, 3 times
+            at most)
 
 The last three lines are the card's name and power limit (nvidia-smi), the
 record of the four kernels as JSON and the result line
@@ -321,13 +327,58 @@ def _device_us(torch, fn, calls=DEVICE_CALLS, tries=3):
     return sum(per.values()), per
 
 
-def _profile_record(torch, fn):
-    """_profile for a record: a whole window if one comes in 3 tries, else
-    the next window as it is; returns (per, counts, whole)."""
-    try:
-        return _profile(torch, fn) + (True,)
-    except RuntimeError:
-        return _profile(torch, fn, whole=False) + (False,)
+# CUgraphNodeType values (cuda.h) of the nodes _graph_record counts
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset"}
+
+
+def _graph_record(torch, fn):
+    """fn's device work with no host in the way, without the profiler: fn
+    captured once into a CUDA graph, the graph's nodes counted by type
+    through libcuda's cuGraphGetNodes (every launch and copy of one call),
+    and the graph replayed DEVICE_CALLS times back to back between two
+    CUDA events. Returns (device µs per call: its kernels and the gaps
+    between them, {node type: count})."""
+    import ctypes
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                        # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+    raw, n = g.raw_cuda_graph(), ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes failed")
+    counts = {}
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(node, ctypes.byref(t)) == 0,
+              "cuGraphNodeGetType failed")
+        name = GRAPH_NODE_TYPES.get(t.value, f"type{t.value}")
+        counts[name] = counts.get(name, 0) + 1
+    g.instantiate()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(DEVICE_CALLS):
+        g.replay()
+    b.record()
+    b.synchronize()
+    us = a.elapsed_time(b) * 1e3 / DEVICE_CALLS
+    g.reset()
+    return us, counts
 
 
 def _timed_pair(torch, kernel, plain):
@@ -879,11 +930,19 @@ def phase_rhs_trace(torch, p, t):
         rhs()
         walls.append(time.perf_counter() - t0)
     wall_us = float(np.median(walls)) * 1e6
-    per, counts = _profile(torch, rhs, calls=1, whole=False)
+    # a window that lost records shows as K1 launches short of 2 per
+    # operator application (10 fixed ones per rhs, plus the CG loops'):
+    # such a window is taken again, 3 times at most
+    for tries in range(1, 4):
+        per, counts = _profile(torch, rhs, calls=1, whole=False)
+        applies = sum(n for _, n in stats)
+        k1_launches = sum(counts.get(k, 0) for k in k1_names)
+        k1_expected = 2 * (applies + 10)
+        if k1_launches == k1_expected:
+            break
     total = sum(per.values())
     k1 = sum(v for k, v in per.items() if k in k1_names)
     iters = [int(it) for it, _ in stats]
-    applies = sum(n for _, n in stats)
     emit("rhs_trace", config="cavity3d 24^3 ngl=4 f32, one warm rhs_local",
          wall_us_untraced=wall_us, wall_us_runs=[w * 1e6 for w in walls],
          device_us=total, k1_device_us=k1, vector_device_us=total - k1,
@@ -891,11 +950,13 @@ def phase_rhs_trace(torch, p, t):
          vector_share=(total - k1) / wall_us,
          idle_share=1.0 - total / wall_us, cg_iters_fs_main=iters,
          cg_loop_applies=applies, k1_kernels=sorted(k1_names),
-         kernel_launches=sum(counts.values()),
-         k1_launches=sum(counts.get(k, 0) for k in k1_names),
-         k1_launches_expected=2 * (applies + 10),
+         kernel_launches=sum(counts.values()), k1_launches=k1_launches,
+         k1_launches_expected=k1_expected, trace_tries=tries,
          wall_us_per_loop_apply=wall_us / max(applies, 1),
          top_kernels=sorted(per.items(), key=lambda kv: -kv[1])[:8])
+    check(k1_launches == k1_expected,
+          f"rhs_trace: the trace saw {k1_launches} K1 launches, the rhs "
+          f"made {k1_expected}, in {tries} tries")
 
 
 def phase_taylor_green3d(torch, dev):
@@ -982,36 +1043,49 @@ def phase_fdm(torch, dev):
             vel0 = torch.zeros_like(v)
             stats = []
             solve = lambda: solve_kle_local(ops, vort, vel0, 0.0, stats)[1]
+            fused_apply.launches = 0
             vel = solve()
+            launches = fused_apply.launches
+            # per stage: Rw, apply_K(vc) and the A0 residual; the curl
+            # between the stages; plus every CG-loop application
+            expected = 4 * len(stats) - 1 + sum(n for _, n in stats)
             row = dict(setup_s=setup_s, setup_phases_s=p.setup_phases,
                        iters_fs_main=[int(it) for it, _ in stats],
-                       loop_applies=[n for _, n in stats])
+                       loop_applies=[n for _, n in stats],
+                       fused_apply_launches=launches,
+                       expected_launches=expected)
+            check(len(stats) == 2 and launches == expected,
+                  f"fdm {dname} {pc}: fused_apply launched {launches} "
+                  f"times, the solve made {expected} operator applications "
+                  f"in {len(stats)} stages")
             if dtype == torch.float32:
                 row["solve_ms"] = _median_ms(torch, solve, reps=3,
                                              warmup=0)
                 r = ops.free_fs * v
-                per, counts, whole = _profile_record(
-                    torch, lambda: fused_apply(r, ops.KT, ops.nelem, ops.ngl,
-                                               ops.dim))
-                row["k1_ms"] = _median_ms(torch, lambda: fused_apply(
-                    r, ops.KT, ops.nelem, ops.ngl, ops.dim))
-                row.update(k1_device_us=sum(per.values()),
-                           k1_launches=sum(counts.values()),
-                           k1_profile_whole=whole)
+                k1 = lambda: fused_apply(r, ops.KT, ops.nelem, ops.ngl,
+                                         ops.dim)
+                row["k1_ms"] = _median_ms(torch, k1)
+                row["k1_graph_us"], row["k1_nodes"] = _graph_record(torch,
+                                                                    k1)
+                check(row["k1_nodes"] == {"kernel": 2},
+                      f"fdm: one K1 call captured as {row['k1_nodes']}, "
+                      f"want 2 kernels")
                 if pc == "fdm":
-                    per, counts, whole = _profile_record(
-                        torch, lambda: fdm_apply(ops.fdm_fs, r,
-                                                 nelem=ops.nelem,
-                                                 ngl=ops.ngl))
-                    row["fdm_apply_ms"] = _median_ms(
-                        torch, lambda: fdm_apply(ops.fdm_fs, r,
-                                                 nelem=ops.nelem,
-                                                 ngl=ops.ngl))
-                    row.update(fdm_apply_device_us=sum(per.values()),
-                               fdm_apply_launches=sum(counts.values()),
-                               fdm_profile_whole=whole,
-                               fdm_apply_kernels={
-                                   k: [per[k], counts[k]] for k in per})
+                    f = ops.fdm_fs
+                    fa = lambda: fdm_apply(f, r, nelem=ops.nelem,
+                                           ngl=ops.ngl)
+                    row["fdm_apply_ms"] = _median_ms(torch, fa)
+                    (row["fdm_apply_graph_us"],
+                     row["fdm_apply_nodes"]) = _graph_record(torch, fa)
+                    # the per-mode block step alone, as fdm_apply does it
+                    # and as the reference's einsum
+                    z = torch.as_tensor(rng.standard_normal(
+                        (f.ncomp,) + f.npts), dtype=dtype, device=dev)
+                    row["binv_step_graph_us"] = {
+                        "broadcast": _graph_record(torch, lambda: (
+                            f.binv * z.unsqueeze(0)).sum(dim=1))[0],
+                        "einsum": _graph_record(torch, lambda: torch.einsum(
+                            "ab...,b...->a...", f.binv, z))[0]}
             row["finite"] = bool(torch.isfinite(vel).all())
             out[(dname, pc)] = (row, vel)
             check(row["finite"], f"fdm {dname} {pc}: non-finite velocity")

@@ -55,17 +55,16 @@ class FDMOps:
     #: per-axis stacked eigenbases, (ncomp, n1d_d, n1d_d); columns beyond
     #: the free-subspace dimension are zero
     Qs: tuple
-    #: 1/(sum of per-axis eigenvalues) per node and component, (n_nodes, c)
-    dinv: torch.Tensor
     #: per-mode (ncomp, ncomp) inverse blocks of the exact mode-block-
-    #: diagonal of the transformed operator (the cross-component penalty
-    #: coupling the scalar dinv misses), (ncomp, ncomp) + npts, or None for
-    #: the scalar-diagonal form
-    binv: torch.Tensor | None
-    #: representative element slot of each global node, (n_nodes,) into E*nn
-    rep_rows: torch.Tensor
-    #: (E, nn) global node id per element slot (local scatter-back gather)
-    cell_nodes: torch.Tensor
+    #: diagonal of the transformed operator (the per-component eigenvalue
+    #: sums plus the cross-component penalty coupling), (ncomp, ncomp) + npts
+    binv: torch.Tensor
+    #: representative element slot of each global node, (n_nodes,) into
+    #: E*nn; host numpy, read by the gather path only
+    rep_rows: np.ndarray
+    #: (E, nn) global node id per element slot (the gather path's scatter-
+    #: back); host numpy
+    cell_nodes: np.ndarray
     #: Jacobi coefficients (leftover_mask / K_diag) for the few free dofs
     #: outside the largest contained tensor mask, (n_nodes, c)
     jleft: torch.Tensor
@@ -152,10 +151,7 @@ def _axis_free_masks(mask_c: np.ndarray, npts: tuple):
 
 
 def build_fdm(mesh, free_mask_np: np.ndarray, *, device, dtype,
-              diag_global: np.ndarray | None = None,
-              alpha_w: float | None = None,
-              alpha_d: float | None = None,
-              block: bool = True) -> FDMOps | None:
+              diag_global: np.ndarray | None = None) -> FDMOps | None:
     """FDM data for one masked system; None when the mesh has no tensor
     structure. free_mask_np: (n_nodes, dim) bool/float free-dof mask.
 
@@ -173,9 +169,7 @@ def build_fdm(mesh, free_mask_np: np.ndarray, *, device, dtype,
     The arrays go to `device` in `dtype`; setup stays numpy float64."""
     if not getattr(mesh, "is_box", False):
         return None
-    from pynama_tpu_torch.elements.kle import ALPHA_D, ALPHA_W
-    aw = ALPHA_W if alpha_w is None else alpha_w
-    ad = ALPHA_D if alpha_d is None else alpha_d
+    from pynama_tpu_torch.elements.kle import ALPHA_D as ad, ALPHA_W as aw
     dim, ngl = mesh.dim, mesh.ngl
     npts = tuple(mesh.npts)
     free = np.asarray(free_mask_np).astype(bool).reshape(mesh.n_nodes, dim)
@@ -234,55 +228,48 @@ def build_fdm(mesh, free_mask_np: np.ndarray, *, device, dtype,
                 pen = pen + aw * pen_term(d)       # curl diag block (c,c)
         dsum[c] = np.maximum(lam_sum + pen,
                              1e-12 * max(float(lam_sum.max()), 1.0))
-    dinv = (1.0 / dsum).reshape(dim, -1).T            # (n_nodes, dim)
 
-    binv = None
-    if block:
-        # exact per-mode (dim x dim) block diagonal of the transformed
-        # operator: since diag(A (x) B) = diag(A) (x) diag(B), the mode-
-        # diagonal of every cross-component penalty block ⊗_e Q_cᵀ X_e Q_c'
-        # is the product of per-axis diagonals diag(Q_c,eᵀ X_e Q_c',e).
-        # The scalar dinv drops these cross entries — exactly the mode-
-        # off-diagonal coupling that made the FS stage need 3x the main
-        # stage's iterations (docs/ROADMAP r2 item; DESIGN.md §4). The
-        # block diagonal of an SPD congruence is SPD; eigenvalue clipping
-        # below guards the padded/rounded modes.
-        def cross_diag(c, c2, d, X):
-            return np.einsum("im,ij,jm->m", Qs[d][c], X, Qs[d][c2])
+    # exact per-mode (dim x dim) block diagonal of the transformed operator:
+    # since diag(A (x) B) = diag(A) (x) diag(B), the mode-diagonal of every
+    # cross-component penalty block ⊗_e Q_cᵀ X_e Q_c' is the product of
+    # per-axis diagonals diag(Q_c,eᵀ X_e Q_c',e). A scalar 1/dsum drops
+    # these cross entries — exactly the mode-off-diagonal coupling that made
+    # the FS stage need 3x the main stage's iterations (docs/DESIGN.md §4).
+    # The block diagonal of an SPD congruence is SPD; eigenvalue clipping
+    # below guards the padded/rounded modes.
+    def cross_diag(c, c2, d, X):
+        return np.einsum("im,ij,jm->m", Qs[d][c], X, Qs[d][c2])
 
-        Bmat = np.zeros((dim, dim) + npts)
-        for c in range(dim):
-            Bmat[c, c] = dsum[c]
-        for c in range(dim):
-            for c2 in range(c + 1, dim):
-                div_f = np.ones(npts)
-                curl_f = np.ones(npts)
-                for e in range(dim):
-                    _, _, _, Br, Cr = AB[e]
-                    Xd = Cr if e == c else (Cr.T if e == c2 else Br)
-                    Xw = Cr if e == c2 else (Cr.T if e == c else Br)
-                    div_f = div_f * cross_diag(c, c2, e, Xd)[grids[e]]
-                    curl_f = curl_f * cross_diag(c, c2, e, Xw)[grids[e]]
-                off = ad * div_f - aw * curl_f
-                Bmat[c, c2] = off
-                Bmat[c2, c] = off
-        Bb = np.moveaxis(Bmat.reshape(dim, dim, -1), -1, 0)  # (n, c, c)
-        Bb = 0.5 * (Bb + np.swapaxes(Bb, 1, 2))
-        lam_b, V = np.linalg.eigh(Bb)
-        floor = 1e-10 * np.maximum(lam_b.max(axis=1, keepdims=True), 1.0)
-        lam_b = np.maximum(lam_b, floor)
-        Binv = np.einsum("nck,nk,ndk->ncd", V, 1.0 / lam_b, V)
-        binv = np.moveaxis(Binv, 0, -1).reshape((dim, dim) + npts)
+    Bmat = np.zeros((dim, dim) + npts)
+    for c in range(dim):
+        Bmat[c, c] = dsum[c]
+    for c in range(dim):
+        for c2 in range(c + 1, dim):
+            div_f = np.ones(npts)
+            curl_f = np.ones(npts)
+            for e in range(dim):
+                _, _, _, Br, Cr = AB[e]
+                Xd = Cr if e == c else (Cr.T if e == c2 else Br)
+                Xw = Cr if e == c2 else (Cr.T if e == c else Br)
+                div_f = div_f * cross_diag(c, c2, e, Xd)[grids[e]]
+                curl_f = curl_f * cross_diag(c, c2, e, Xw)[grids[e]]
+            off = ad * div_f - aw * curl_f
+            Bmat[c, c2] = off
+            Bmat[c2, c] = off
+    Bb = np.moveaxis(Bmat.reshape(dim, dim, -1), -1, 0)  # (n, c, c)
+    Bb = 0.5 * (Bb + np.swapaxes(Bb, 1, 2))
+    lam_b, V = np.linalg.eigh(Bb)
+    floor = 1e-10 * np.maximum(lam_b.max(axis=1, keepdims=True), 1.0)
+    lam_b = np.maximum(lam_b, floor)
+    Binv = np.einsum("nck,nk,ndk->ncd", V, 1.0 / lam_b, V)
+    binv = np.moveaxis(Binv, 0, -1).reshape((dim, dim) + npts)
 
-    rep = np.asarray(mesh.incidence)[:, 0]
     f = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-    idx = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int64),
-                                    device=device)
     return FDMOps(
-        Qs=tuple(f(q) for q in Qs), dinv=f(dinv),
-        binv=None if binv is None else f(binv),
-        rep_rows=idx(rep), cell_nodes=idx(mesh.cell_nodes), jleft=f(jleft),
-        npts=npts, ncomp=dim)
+        Qs=tuple(f(q) for q in Qs), binv=f(binv),
+        rep_rows=np.asarray(mesh.incidence)[:, 0].astype(np.int64),
+        cell_nodes=np.asarray(mesh.cell_nodes, dtype=np.int64),
+        jleft=f(jleft), npts=npts, ncomp=dim)
 
 
 # --------------------------------------------------------------------- apply
@@ -367,29 +354,27 @@ def fdm_apply(f: FDMOps, r_loc: torch.Tensor, nelem: tuple | None = None,
 
     With (nelem, ngl) given the grid<->local conversions are strided
     slices (the engine's path); otherwise they are index gathers through
-    `rep_rows` and `cell_nodes`."""
+    `rep_rows` and `cell_nodes`, copied to r_loc's device on each call."""
     E, nnc = r_loc.shape
     c = f.ncomp
     if nelem is not None:
         z = _local_to_grid(r_loc, nelem, ngl, c)
     else:
-        g = r_loc.reshape(E * (nnc // c), c)[f.rep_rows]   # (n_nodes, c)
+        rows = torch.as_tensor(f.rep_rows, device=r_loc.device)
+        g = r_loc.reshape(E * (nnc // c), c)[rows]      # (n_nodes, c)
         z = g.reshape(f.npts + (c,))
     z = torch.movedim(z, -1, 0)                     # (c, np0[, np1, np2])
     g0 = z
     csh = (c,) + f.npts
     z = _transform_chain(f.Qs, z, transpose_q=True)     # analysis (Qᵀ)
-    if f.binv is not None:
-        # per-mode (c, c) blocks as a broadcast multiply and sum: einsum
-        # lowers this to a batched cuBLAS gemv that took 60% of the apply
-        # (316 of 527 µs at 24^3 ngl=4 f32 on an H100)
-        z = (f.binv * z.unsqueeze(0)).sum(dim=1)
-    else:
-        z = z * f.dinv.T.reshape(csh)
+    # per-mode (c, c) blocks as a broadcast multiply and sum: einsum lowers
+    # this to a batched cuBLAS gemv (chip_smoke.py's fdm phase times both)
+    z = (f.binv * z.unsqueeze(0)).sum(dim=1)
     z = _transform_chain(f.Qs, z, transpose_q=False)    # synthesis (Q)
     z = z + f.jleft.T.reshape(csh) * g0
     z = torch.movedim(z, 0, -1)                     # back to (np..., c)
     if nelem is not None:
         return _grid_to_local(z, nelem, ngl, c)
-    out = z.reshape(-1, c)[f.cell_nodes]            # (E, nn, c)
+    nodes = torch.as_tensor(f.cell_nodes, device=r_loc.device)
+    out = z.reshape(-1, c)[nodes]                   # (E, nn, c)
     return out.reshape(E, nnc)

@@ -66,12 +66,13 @@ def test_build_fdm_matches(dim, system):
     assert len(a.Qs) == len(b.Qs) == dim
     for qa, qb in zip(a.Qs, b.Qs):
         assert qa.shape == qb.shape and _rel(qa.numpy(), qb) <= 1e-14
-    for key in ("dinv", "binv", "jleft"):
+    # binv inverts the per-mode blocks whose diagonal is the reference's
+    # 1/dinv, so it carries the eigenvalue sums as well
+    for key in ("binv", "jleft"):
         assert getattr(a, key).shape == getattr(b, key).shape, key
         assert _rel(getattr(a, key).numpy(), getattr(b, key)) <= 1e-14, key
-    np.testing.assert_array_equal(a.rep_rows.numpy(), np.asarray(b.rep_rows))
-    np.testing.assert_array_equal(a.cell_nodes.numpy(),
-                                  np.asarray(b.cell_nodes))
+    np.testing.assert_array_equal(a.rep_rows, np.asarray(b.rep_rows))
+    np.testing.assert_array_equal(a.cell_nodes, np.asarray(b.cell_nodes))
     # the FS stage's corner rule leaves free dofs outside any tensor mask
     assert (float(np.abs(np.asarray(b.jleft)).max()) > 0) \
         == (system == "fdm_fs")
