@@ -57,18 +57,25 @@ exits non-zero without the final result line:
             adaptive steps through start_solver(); prints setup phases,
             seconds per step, CG iterations per solve, kernel launches (which
             must account for every operator application) and peak memory
-6. cg_split the flagship's free-slip-stage system after those steps, solved
+6. rhs_trace one warm rhs_local of the flagship after phase 5's steps,
+            timed untraced (median of 3) and traced once with
+            torch.profiler: the device-busy, K1 and other-kernel (CG
+            vectors, BC writes, vtensv) shares of its untraced wall time;
+            K1's launches in the trace must be 2 per operator application
+            (a trace short of them lost records and is taken again, 3 times
+            at most)
+7. cg_split the flagship's free-slip-stage system after those steps, solved
             by solver.cg.pcg (rtol 1e-6) once with apply_K through K1 and
             once through K2, same b and x0: iterations, loop applies and
             the true residual (float64 operator) of each; a record, no gate
-7. taylor_green3d
+8. taylor_green3d
             the 3D Taylor-Green case file at full width (25^3 elements,
             ngl=3, custom-func boundary and initial conditions, float32, CG
             rtol 1e-6): setUp and 3 accepted steps; setup phases, s/step, CG
             iterations, K1 launches against the expected count, peak memory
             and the relative max-norm vorticity error against the analytic
             field at the end time, which must be <= TG3D_ERR_LIMIT
-8. fdm      the flagship's config built with pc="jacobi" and pc="fdm", one
+9. fdm      the flagship's config built with pc="jacobi" and pc="fdm", one
             cold two-stage solve each from the curl of a numpy-seeded random
             velocity, K1's launches in it against the expected count: in
             f64 (CG rtol 1e-10) the velocities agree to 1e-6 and FDM takes
@@ -79,13 +86,6 @@ exits non-zero without the final result line:
             device µs of graph replays (`_graph_record`); the FDM apply's
             per-mode block step alone, broadcast against einsum; the FDM
             setup seconds
-9. rhs_trace one warm rhs_local of the flagship after phase 5's steps,
-            timed untraced (median of 3) and traced once with
-            torch.profiler: the device-busy, K1 and other-kernel (CG
-            vectors, BC writes, vtensv) shares of its untraced wall time;
-            K1's launches in the trace must be 2 per operator application
-            (a trace short of them lost records and is taken again, 3 times
-            at most)
 
 The last three lines are the card's name and power limit (nvidia-smi), the
 record of the four kernels as JSON and the result line
@@ -122,6 +122,7 @@ DRIVER_ARGS = ["24", "4", "--nit", "200", "--rounds", "3"]
 SPLIT_LIMIT = 5e-5   # fused3x vs fused_apply: the bf16 split's own error
                      # (~7e-6 on the CPU), with margin
 DEVICE_CALLS = 20    # calls per profiled device time
+PAD_KERNELS = 256    # filler kernels at each end of a profiler window
 # the GEMM sweep: row counts around the 64- and 128-row tiles and the
 # flagship's E, at every (K, N) the engine gives the GEMM
 GEMM_M = [1, 63, 64, 127, 129, 13824]
@@ -291,25 +292,57 @@ def _median_ms(torch, fn, reps=30, warmup=3):
     return float(np.median(times))
 
 
+def _padding(torch):
+    """The filler kernel _profile pads its windows with (fill_ of an int16
+    buffer of its own) and its profiler keys, learnt once from a window of
+    fillers alone: (fill, keys)."""
+    if not _PAD:
+        buf = torch.zeros(256, dtype=torch.int16, device="cuda")
+        act = torch.profiler.ProfilerActivity.CUDA
+        for _ in range(3):
+            with torch.profiler.profile(activities=[act]) as prof:
+                for _ in range(2 * PAD_KERNELS):
+                    buf.fill_(1)
+                torch.cuda.synchronize()
+            keys = {e.key for e in prof.key_averages()
+                    if e.self_device_time_total > 0}
+            if keys:
+                break
+        check(len(keys) == 1, f"filler kernels seen as {sorted(keys)}")
+        _PAD.update(fill=lambda: buf.fill_(1), keys=keys)
+    return _PAD["fill"], _PAD["keys"]
+
+
+_PAD = {}
+
+
 def _profile(torch, fn, calls=DEVICE_CALLS, tries=3, whole=True):
     """Per kernel name (its first 60 characters; instantiations that share
     them are summed): device µs and launches per call of fn, from the self
     device time and count of every kernel that `calls` calls launch
-    (torch.profiler, CUDA activity). On the H100 machine the profiler now
-    and then returns a window with no kernel records, so a window in which
-    some kernel did not run a multiple of `calls` times is taken again,
-    `tries` times at most; with whole=False the first window with records
-    is taken as it is (launch counts per call may then be fractions)."""
+    (torch.profiler, CUDA activity). On the H100 machine the profiler drops
+    the first few kernel records of a window and now and then a few of the
+    last (up to 6 and 8 of them in tools/profiler_windows.py's 40 padded
+    windows), so each window is padded with PAD_KERNELS filler kernels
+    before and after fn's calls, which the result leaves out. A window in which some kernel did not run a multiple
+    of `calls` times is taken again, `tries` times at most; with
+    whole=False the first window with records is taken as it is (launch
+    counts per call may then be fractions)."""
+    fill, skip = _padding(torch)
     fn()
     torch.cuda.synchronize()
     act = torch.profiler.ProfilerActivity.CUDA
     for _ in range(tries):
         with torch.profiler.profile(activities=[act]) as prof:
+            for _ in range(PAD_KERNELS):
+                fill()
             for _ in range(calls):
                 fn()
+            for _ in range(PAD_KERNELS):
+                fill()
             torch.cuda.synchronize()
         rows = [e for e in prof.key_averages()
-                if e.self_device_time_total > 0]
+                if e.self_device_time_total > 0 and e.key not in skip]
         if rows and (not whole or all(e.count % calls == 0 for e in rows)):
             per, counts = {}, {}
             for e in rows:
@@ -1189,12 +1222,12 @@ def main() -> int:
     decomp = phase_decomp(torch, dev)
     phase_parity(torch, dev)
     launches, problem, t_main = phase_main(torch, dev)
+    # the last profiler windows, before the fdm phase's CUDA graph captures
+    # (after them the profiler drops more records at a window's head)
+    phase_rhs_trace(torch, problem, t_main)
     phase_cg_split(torch, problem)
     phase_taylor_green3d(torch, dev)
     phase_fdm(torch, dev)
-    # last: a window of ~25,000 kernels, after which the profiler has
-    # dropped records from later windows
-    phase_rhs_trace(torch, problem, t_main)
 
     record["launches"] = launches
     kernels = [("fused_apply", "fused_apply.cu", "pynama_tpu/ops/fused.py:180",
