@@ -1,6 +1,7 @@
 """GPU smoke run of pynama_tpu_torch: build the kernels, check them, drive
-the main path, the analytic-function case, the FDM preconditioner and the
-decomposition drivers at full size.
+the main path, the analytic-function case, the FDM preconditioner, the
+global-layout path (direct, Operators, GMRES) and the decomposition
+drivers at full size.
 
     python3 chip_smoke.py
 
@@ -46,12 +47,14 @@ exits non-zero without the final result line:
             two drivers exp.fused_decomp and exp.mm3x at 24^3 ngl=4 (200
             applies per chain, 3 rounds), with each kernel's launch count
             set to 0 just before them and read just after
-4. parity   small f64 cases, each one rhs_local and a 3-step transient on
-            the GPU (kernel) against the CPU (plain version), relative
-            error <= 1e-9, same accepted steps: the 3D no-slip cavity (3^3
-            ngl=3), the 3D Taylor-Green case (3^3 ngl=3), the flat plate
-            with mixed walls (4^2 ngl=3 from t=0.1) and the cavity under
-            pc="fdm"
+4. parity   small f64 cases, each one rhs_local (Problem.rhs for the
+            direct solve) and a 3-step transient on the GPU (kernel)
+            against the CPU (plain version), relative error <= 1e-9, same
+            accepted steps: the 3D no-slip cavity (3^3 ngl=3), the 3D
+            Taylor-Green case (3^3 ngl=3), the flat plate with mixed walls
+            (4^2 ngl=3 from t=0.1), the cavity under pc="fdm", the 2D
+            cavity-2d case (4^2 ngl=3) under solver="direct" and the 3D
+            cavity under solver="gmres" (1 step)
 5. main     the flagship no-slip 3D lid-driven cavity (24^3 elements,
             ngl=4, float32, CG rtol 1e-6): Problem.setUp() and 2 accepted
             adaptive steps through start_solver(); prints setup phases,
@@ -86,10 +89,36 @@ exits non-zero without the final result line:
             device µs of graph replays (`_graph_record`); the FDM apply's
             per-mode block step alone, broadcast against einsum; the FDM
             setup seconds
+10. global_direct
+            the cavity-2d case file at full width (50^2 elements, ngl=3,
+            20,402 velocity dofs, no-slip), float32 with no solver option:
+            "auto" must resolve to the direct solve with no engine; setUp
+            (the two dense factors: host assembly and device Cholesky
+            seconds apart) and 3 accepted steps through the global layout
+            (Problem.rhs); s/step, one warm rhs, peak memory, diagnostics()
+            after each step, K1 launches (0 on this path); then in float64
+            from the state reached, one Problem.rhs of the direct solve
+            against rhs_local of the engine's CG at rtol 1e-12, relative
+            <= DIRECT_RHS_LIMIT, with K1's launches == expected
+11. global_ops
+            the taylor-green3d case file (25^3 ngl=3, f64): the global
+            Operators (apply_op) against the engine's curl/srt/div_srt (K1)
+            on the analytic velocity, relative <= OPS_LIMIT, with times of
+            both; operators_errors(1.0) beside the JAX package's, and
+            diagnostics() at t = 0 against the JAX package's
+            (DIAG_LIMIT)
+12. gmres   the same case, f64 at rtol 1e-10: kle_errors([0.5, 1.0]) with
+            the engine's CG and with its GMRES (Jacobi), then one solve
+            with GMRES under pc="fdm"; iterations, ms per solve and µs per
+            iteration, K1's launches == expected in each, the errors
+            within KLE_AGREE_LIMIT of CG's, relative to the exact
+            velocity's norm (or its warm start's, where that is larger)
 
 The last three lines are the card's name and power limit (nvidia-smi), the
-record of the four kernels as JSON and the result line
-{"ok": true, "device": {...}}. A kernel's `bound_ms` is the larger of the
+record of the four kernels as JSON (K1's also with `launches_by_path`: its
+launches in the main path's run and in each later path's, each counted from
+0: the global_direct CG rhs, global_ops, the gmres phase's GMRES solves)
+and the result line {"ok": true, "device": {...}}. A kernel's `bound_ms` is the larger of the
 operations of its function over the card's peak rate for their type and its
 bytes (each input read once, each output written once) over the memory rate,
 from the H100 SXM data-sheet peaks below.
@@ -116,6 +145,30 @@ TG3D_REF_T = 0.013183098548825902
 TG3D_ERR_LIMIT = 2 * TG3D_REF_ERR
 # the fdm phase: f64 jacobi and fdm solutions agree to this, relative
 FDM_AGREE_LIMIT = 1e-6
+# the global_direct phase: one f64 Problem.rhs of the direct solve against
+# rhs_local of the engine's CG at rtol 1e-12, relative max-norm
+DIRECT_RHS_LIMIT = 1e-8
+# the global_ops phase: the global Operators against the engine's (K1)
+OPS_LIMIT = 1e-10
+# the JAX package's diagnostics() at t = 0 and operators_errors(1.0) on the
+# taylor-green3d case file (25^3 ngl=3), f64 on the CPU
+# (`python tools/global_reference.py`); the port's diagnostics are held to
+# them at DIAG_LIMIT, relative. The operator errors are printed beside the
+# port's, not gated: at viscous time 1.0 (t = 12.5) the fields have decayed
+# to ~1e-13 and the errors sit at round-off (the convective one at 5e-26)
+TG3D_DIAG_REF = {"kinetic_energy": 0.1875000000000002,
+                 "enstrophy": 44.413219804902134,
+                 "div_l2": 0.02017817529489499}
+TG3D_OPS_ERR_REF = (4.616403257094228e-26, 2.5647494785659055e-13,
+                    3.947764263342739e-15)
+DIAG_LIMIT = 1e-8
+# the gmres phase: |error_cg - error_gmres| <= this times the norm of the
+# exact velocity at that viscous time, or of the warm start the sweep hands
+# the solve (the previous time's velocity) where that is larger: at
+# tau = 1.0 the field has decayed to 2e-10 of tau = 0.5's, below the
+# round-off of that start, and CG's and GMRES's errors there differ by
+# 1.5e-5 of the field (both solves converged to rtol 1e-10)
+KLE_AGREE_LIMIT = 1e-6
 # the decomposition drivers: the flagship shape, depth cut to 200 applies
 # per chain and 3 rounds
 DRIVER_ARGS = ["24", "4", "--nit", "200", "--rounds", "3"]
@@ -188,10 +241,14 @@ def emit(phase: str, **fields) -> None:
 
 
 def cavity_config(nelem, ngl, rho, mu, lid, max_steps, end_time):
-    zero = [0] * len(nelem)
-    sides = ("up", "down", "left", "right", "back", "front")
+    """No-slip lid-driven cavity on [0,1]^dim (dim = len(nelem)), the lid
+    velocity on "up", every other wall at rest, zero initial vorticity."""
+    dim = len(nelem)
+    zero = [0] * dim
+    sides = ("up", "down", "left", "right") + (("back", "front") if dim == 3
+                                               else ())
     return {
-        "name": "cavity3d",
+        "name": "cavity3d" if dim == 3 else "cavity-2d",
         "material-properties": {"rho": rho, "mu": mu},
         "domain": {"ngl": ngl, "box-mesh": {
             "nelem": list(nelem), "lower": zero, "upper": [1] * len(nelem)}},
@@ -199,8 +256,15 @@ def cavity_config(nelem, ngl, rho, mu, lid, max_steps, end_time):
                         "max-steps": max_steps},
         "boundary-conditions": {"no-slip": {
             s: (lid if s == "up" else zero) for s in sides}},
-        "initial-conditions": {"vorticity": [0, 0, 0]},
+        "initial-conditions": {"vorticity": [0] * (3 if dim == 3 else 1)},
     }
+
+
+def cavity2d_config(max_steps):
+    """pynama_tpu/cases/yaml/cavity-2d.yaml as it is (50^2 elements, ngl=3,
+    rho 0.5, mu 0.01, lid [2, 0], no-slip walls, end time 2) with the step
+    count given."""
+    return cavity_config((50, 50), 3, 0.5, 0.01, [2, 0], max_steps, 2.0)
 
 
 def tg3d_config(nelem, ngl, max_steps):
@@ -825,9 +889,21 @@ def parity_cases():
     step's size factor is clipped at 10 (dt 1e-3, 1e-2, 1e-1): a factor the
     error norm sets moves with the CG solves' last bits (at 1e-8 the 3D
     Taylor-Green case's third dt differs by ~1e-5 between the kernel and
-    the plain version), and so would the end time."""
+    the plain version), and so would the end time. The direct case
+    (4^2 ngl=3 cavity-2d) runs no kernel: the GPU side is cuSOLVER's
+    factor and the global layout's torch ops; its solves agree to
+    round-off, so its error norms do too, but at 1e-8 the third dt still
+    follows their last bits (t_end moved 7e-9), hence 1e-4. GMRES(30) runs
+    at rtol 1e-10 with 1000 Arnoldi steps at most (its first free-slip
+    solve has b = 0 from a nonzero start, the lid being tangential, where
+    the reference's GMRES iterates to maxiter and CG returns x = 0), and
+    its depth is cut to 1 accepted step: restarted GMRES takes ~15x CG's
+    iterations on this cavity, and 3 steps took 75 s of GPU and CPU. The
+    accepted steps each case must take are its config's max-steps."""
     opts = dict(solver="cg", cg_rtol=1e-13, cg_maxiter=4000)
     cavity = cavity_config((3, 3, 3), 3, 1.0, 0.02, [1.0, 0, 0], 3, 1.0)
+    cavity2 = cavity_config((4, 4), 3, 0.5, 0.01, [2, 0], 3, 2.0)
+    cavity_1 = cavity_config((3, 3, 3), 3, 1.0, 0.02, [1.0, 0, 0], 1, 1.0)
     return [
         ("cavity3d 3^3 ngl=3", cavity, opts, 1e-8),
         ("taylor-green3d 3^3 ngl=3", tg3d_config((3, 3, 3), 3, 3), opts,
@@ -836,6 +912,9 @@ def parity_cases():
         ("flat-plate-FSNS 4^2 ngl=3 t0=0.1",
          fsns_config((4, 4), 3, 0.1, 3), opts, 1e-4),
         ("cavity3d 3^3 ngl=3 pc=fdm", cavity, dict(opts, pc="fdm"), 1e-8),
+        ("cavity-2d 4^2 ngl=3 direct", cavity2, dict(solver="direct"), 1e-4),
+        ("cavity3d 3^3 ngl=3 gmres, 1 step", cavity_1,
+         dict(solver="gmres", cg_rtol=1e-10, cg_maxiter=1000), 1e-4),
     ]
 
 
@@ -849,29 +928,40 @@ def phase_parity(torch, dev):
             p = Problem(cfg, device=device, dtype=torch.float64, **opts)
             p.setUp()
             rng = np.random.default_rng(0)
-            vort = p.to_local(rng.standard_normal((p.mesh.n_nodes,
-                                                   p.dim_w)))
-            vel = torch.zeros((p.mesh.n_cells, p.mesh.nnode_el * p.dim),
-                              dtype=torch.float64, device=device)
-            f, _ = rhs_local(p.engine_ops, p.start_time, vort, vel)
+            vort = rng.standard_normal((p.mesh.n_nodes, p.dim_w))
+            ops = p.engine_ops
+            if ops is None:         # the global layout (direct solve)
+                f, _ = p.rhs(p.start_time, vort, p.vel * 0.0)
+            else:
+                vel = torch.zeros((p.mesh.n_cells, p.mesh.nnode_el * p.dim),
+                                  dtype=torch.float64, device=device)
+                f, _ = rhs_local(ops, p.start_time, p.to_local(vort), vel)
             t_end, steps = p.start_solver(atol=tol, rtol=tol, dt0=1e-3)
             out[name] = dict(f=f.cpu().numpy(), vort=p.vort.cpu().numpy(),
                              vel=p.vel.cpu().numpy(), t=t_end, steps=steps,
-                             pc=p.engine_ops.pc)
+                             solver=p.solver_method,
+                             pc=None if ops is None else ops.pc,
+                             krylov=None if ops is None else ops.krylov)
         rel = {k: float(np.abs(out["gpu"][k] - out["cpu"][k]).max()
                         / np.abs(out["cpu"][k]).max())
                for k in ("f", "vort", "vel")}
         emit("parity", case=label, rel_err=rel, limit=PARITY_LIMIT,
-             stepper_tol=tol,
+             stepper_tol=tol, solver=out["gpu"]["solver"],
+             krylov=out["gpu"]["krylov"],
              pc=out["gpu"]["pc"], steps_gpu=out["gpu"]["steps"],
              steps_cpu=out["cpu"]["steps"], t_gpu=out["gpu"]["t"],
              t_cpu=out["cpu"]["t"])
-        check(out["gpu"]["pc"] == out["cpu"]["pc"] == opts.get("pc",
-                                                               "jacobi"),
-              f"parity {label}: preconditioner {out['gpu']['pc']}")
-        check(out["gpu"]["steps"] == out["cpu"]["steps"] == 3,
+        direct = opts["solver"] == "direct"
+        want = dict(solver=opts["solver"],
+                    pc=None if direct else opts.get("pc", "jacobi"),
+                    krylov=None if direct else opts["solver"])
+        for k, v in want.items():
+            check(out["gpu"][k] == out["cpu"][k] == v,
+                  f"parity {label}: {k} {out['gpu'][k]}, want {v}")
+        want_steps = cfg["time-solver"]["max-steps"]
+        check(out["gpu"]["steps"] == out["cpu"]["steps"] == want_steps,
               f"parity {label}: accepted steps gpu {out['gpu']['steps']} "
-              f"cpu {out['cpu']['steps']} (want 3)")
+              f"cpu {out['cpu']['steps']} (want {want_steps})")
         check(all(v <= PARITY_LIMIT for v in rel.values()),
               f"parity {label}: GPU vs CPU relative error {rel} > "
               f"{PARITY_LIMIT}")
@@ -1206,6 +1296,243 @@ def phase_cg_split(torch, p):
          "2 steps", **out)
 
 
+def _direct_setup_s(p):
+    """Problem p's setup phases with the direct systems' host assembly and
+    device factor seconds apart (main, then the free-slip stage)."""
+    out = dict(p.setup_phases)
+    for name, sys in (("main", p.kle.main), ("fs", p.kle.fs)):
+        for k, v in (sys.setup_s if sys is not None else {}).items():
+            out[f"kle_{name}_{k}"] = v
+    return out
+
+
+def phase_global_direct(torch, dev):
+    """The cavity-2d case file through the global layout with no solver
+    option ("auto" resolves its 20,402 velocity dofs to the direct solve):
+    setUp and 3 accepted steps through start_solver -> Problem.rhs, f32;
+    then, in f64 from the state those steps reached, one Problem.rhs of the
+    direct solve against rhs_local of the engine's CG (K1, rtol 1e-12)."""
+    from pynama_tpu_torch.cases import Problem
+    from pynama_tpu_torch.engine.local_engine import rhs_local
+    from pynama_tpu_torch.ops.fused import fused_apply
+
+    cfg = cavity2d_config(3)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fused_apply.launches = 0
+    p = Problem(cfg, device=dev, dtype=torch.float32)
+    t0 = time.perf_counter()
+    p.setUp()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    peak_setup = torch.cuda.max_memory_allocated(dev)
+    check(p.solver_method == "direct" and p.engine_ops is None,
+          f"global_direct: solver {p.solver_method}, engine built "
+          f"{p.engine_ops is not None}; want direct and no engine")
+    factors = [s.chol for s in (p.kle.main, p.kle.fs) if s is not None]
+    check(len(factors) == 2 and all(f.dtype == torch.float32
+                                    for f in factors),
+          "global_direct: want two float32 factors (no-slip: two stages)")
+    snaps = []
+
+    def post(step, t, dt, vort, vel):
+        snaps.append((step, t, dt, vort.clone(), vel.clone()))
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    t_end, steps = p.start_solver(post_step=post, dt0=1e-3)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = fused_apply.launches
+    peak_run = torch.cuda.max_memory_allocated(dev)
+    diags = [dict(step=st, t=t, dt=dt, **p.diagnostics(vel=vel, vort=vort))
+             for st, t, dt, vort, vel in snaps]
+    # one warm rhs of the path (4 triangular solves), CUDA events
+    rhs_ms = _median_ms(torch, lambda: p.rhs(t_end, p.vort, p.vel), reps=3,
+                        warmup=1)
+    finite = bool(torch.isfinite(p.vort).all()) and bool(
+        torch.isfinite(p.vel).all()) and all(
+        np.isfinite(d[k]) for d in diags
+        for k in ("kinetic_energy", "enstrophy", "div_l2"))
+    row = dict(config="cavity-2d.yaml 50^2 ngl=3 f32, no solver option, "
+               "depth cut to 3 accepted steps",
+               n_nodes=p.mesh.n_nodes, velocity_dofs=p.mesh.n_nodes * p.dim,
+               solver_method=p.solver_method, setup_s=setup_s,
+               setup_phases_s=_direct_setup_s(p),
+               factor_bytes=sum(f.numel() * f.element_size()
+                                for f in factors),
+               peak_mem_setup_bytes=peak_setup, accepted_steps=steps,
+               t_end=t_end, run_s=run_s, s_per_step=run_s / max(steps, 1),
+               rhs_ms=rhs_ms, peak_mem_run_bytes=peak_run,
+               fused_apply_launches=launches, diagnostics=diags,
+               finite=finite)
+    vort64, vel64 = p.vort.double(), p.vel.double()
+    del p, snaps, factors
+    torch.cuda.empty_cache()
+    check(steps == 3, f"global_direct: accepted {steps} steps, want 3")
+    check(finite, "global_direct: non-finite fields or diagnostics")
+    check(launches == 0, f"global_direct: the direct path launched K1 "
+          f"{launches} times, want 0")
+
+    # f64, from that state: the direct solve against the engine's CG
+    torch.cuda.reset_peak_memory_stats(dev)
+    pd = Problem(cfg, device=dev, dtype=torch.float64)
+    t0 = time.perf_counter()
+    pd.setUp()
+    torch.cuda.synchronize()
+    row["f64_setup_s"] = time.perf_counter() - t0
+    row["f64_setup_phases_s"] = _direct_setup_s(pd)
+    row["f64_peak_mem_setup_bytes"] = torch.cuda.max_memory_allocated(dev)
+    f_d = pd.rhs(t_end, vort64, vel64)[0].cpu().numpy()
+    del pd
+    torch.cuda.empty_cache()
+    pc = Problem(cfg, device=dev, dtype=torch.float64, solver="cg",
+                 cg_rtol=1e-12, cg_maxiter=20000)
+    pc.setUp()
+    stats = []
+    fused_apply.launches = 0
+    f_l, _ = rhs_local(pc.engine_ops, t_end, pc.to_local(vort64),
+                       pc.to_local(vel64), stats)
+    torch.cuda.synchronize()
+    k1 = fused_apply.launches
+    # Rw, apply_K(vc) and the A0 residual per stage (2 stages), the curl
+    # between them, then srt, div_srt, curl -> 10; plus the CG loops'
+    k1_expected = 10 + sum(n for _, n in stats)
+    f_c = pc.to_global(f_l, pc.dim_w)
+    rel = float(np.abs(f_d - f_c).max() / np.abs(f_c).max())
+    del pc
+    torch.cuda.empty_cache()
+    row.update(rhs_f64_rel_diff=rel, limit=DIRECT_RHS_LIMIT,
+               cg_iters_fs_main=[int(it) for it, _ in stats],
+               cg_k1_launches=k1, cg_k1_expected=k1_expected)
+    emit("global_direct", **row)
+    check(rel <= DIRECT_RHS_LIMIT, f"global_direct: f64 rhs, direct vs the "
+          f"engine's CG, relative {rel:.3e} > {DIRECT_RHS_LIMIT}")
+    check(k1 > 0 and k1 == k1_expected, f"global_direct: K1 launched {k1} "
+          f"times in the CG rhs, the path made {k1_expected} applications")
+    return k1
+
+
+def phase_global_ops(torch, dev):
+    """The taylor-green3d case file (25^3 ngl=3, f64): the global Operators
+    (apply_op) against the engine's curl/srt/div_srt (K1) on the analytic
+    velocity at t = 0; operators_errors(1.0) and diagnostics() at t = 0,
+    the diagnostics against the JAX package's."""
+    from pynama_tpu_torch.cases import Problem
+    from pynama_tpu_torch.engine import local_engine as LE
+    from pynama_tpu_torch.ops.fused import fused_apply
+
+    cfg = tg3d_config((25, 25, 25), 3, 3)
+    p = Problem(cfg, device=dev, dtype=torch.float64, solver="cg")
+    p.setUp()
+    ops, op = p.engine_ops, p.operator
+    v = p.vel
+    s = op.srt(v)
+    cases = (("curl", op.curl, LE.curl, v, p.dim_w),
+             ("srt", op.srt, LE.srt, v, p.dim_s),
+             ("div_srt", op.div_srt, LE.div_srt, s, p.dim))
+    rel, ms = {}, {}
+    fused_apply.launches = 0
+    for name, glob, eng, x, c in cases:
+        want = p.to_global(eng(ops, p.to_local(x)), c)
+        got = glob(x).cpu().numpy()
+        rel[name] = float(np.abs(got - want).max() / np.abs(want).max())
+    torch.cuda.synchronize()
+    k1 = fused_apply.launches
+    for name, glob, eng, x, c in cases:
+        xl = p.to_local(x)
+        ms[name] = {"global_apply_op": _median_ms(torch, lambda: glob(x)),
+                    "engine_k1": _median_ms(torch, lambda: eng(ops, xl))}
+    t0 = time.perf_counter()
+    oerr = p.operators_errors(1.0)
+    diag = p.diagnostics()
+    sweep_s = time.perf_counter() - t0
+    diag_rel = {k: abs(diag[k] - TG3D_DIAG_REF[k]) / abs(TG3D_DIAG_REF[k])
+                for k in diag}
+    emit("global_ops", config="taylor-green3d.yaml 25^3 ngl=3 f64, t=0",
+         n_nodes=p.mesh.n_nodes, rel_err=rel, limit=OPS_LIMIT,
+         k1_launches=k1, k1_expected=3, ms=ms,
+         operators_errors=list(oerr), jax_operators_errors=list(
+             TG3D_OPS_ERR_REF), diagnostics=diag,
+         jax_diagnostics=TG3D_DIAG_REF, diagnostics_rel_diff=diag_rel,
+         diagnostics_limit=DIAG_LIMIT, sweeps_s=sweep_s)
+    check(all(e <= OPS_LIMIT for e in rel.values()),
+          f"global_ops: Operators vs the engine {rel} > {OPS_LIMIT}")
+    check(k1 == 3, f"global_ops: K1 launched {k1} times, want 3")
+    check(all(np.isfinite(e) for e in oerr), f"global_ops: errors {oerr}")
+    check(all(e <= DIAG_LIMIT for e in diag_rel.values()),
+          f"global_ops: diagnostics {diag} vs the JAX package's "
+          f"{TG3D_DIAG_REF}: {diag_rel} > {DIAG_LIMIT}")
+    return k1
+
+
+def phase_gmres(torch, dev):
+    """The taylor-green3d case file (25^3 ngl=3, f64, rtol 1e-10):
+    kle_errors([0.5, 1.0]) with the engine's CG and with its GMRES (Jacobi),
+    then kle_errors([0.5]) with GMRES under pc="fdm"; K1's launches in each
+    against the applications the solvers report."""
+    from pynama_tpu_torch.cases import Problem
+    from pynama_tpu_torch.ops.fused import fused_apply
+
+    cfg = tg3d_config((25, 25, 25), 3, 3)
+    taus = {"cg": [0.5, 1.0], "gmres": [0.5, 1.0], "gmres_fdm": [0.5]}
+    out, launches = {}, 0
+    for name, opts in (("cg", dict(solver="cg")),
+                       ("gmres", dict(solver="gmres")),
+                       ("gmres_fdm", dict(solver="gmres", pc="fdm"))):
+        p = Problem(cfg, device=dev, dtype=torch.float64, cg_rtol=1e-10,
+                    cg_maxiter=20000, **opts)
+        p.setUp()
+        check(p.engine_ops.krylov == opts["solver"] and p.engine_ops.pc ==
+              opts.get("pc", "jacobi"), f"gmres: {name} built "
+              f"{p.engine_ops.krylov}/{p.engine_ops.pc}")
+        p.cg_log = []
+        torch.cuda.synchronize()
+        fused_apply.launches = 0
+        t0 = time.perf_counter()
+        errs = p.kle_errors(taus[name])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        k1 = fused_apply.launches
+        iters = [int(it) for it, _ in p.cg_log]
+        applies = [n for _, n in p.cg_log]
+        # per solve (free-slip sides only): Rw and apply_K(vc) for b, plus
+        # what the solver reports: CG its loop applies and its A0 residual,
+        # GMRES every application (residuals included)
+        fixed = 3 if name == "cg" else 2
+        expected = fixed * len(iters) + sum(applies)
+        norms = [float(torch.linalg.norm(p.exact_fields(
+            t**2 / (4 * p.nu))[0])) for t in taus[name]]
+        out[name] = dict(errors=errs, exact_vel_norms=norms, iters=iters,
+                         applies=applies, k1_launches=k1,
+                         k1_expected=expected, seconds=secs,
+                         ms_per_solve=1e3 * secs / len(iters),
+                         us_per_iter=1e6 * secs / max(sum(iters), 1))
+        if name != "cg":
+            launches += k1
+        check(len(iters) == len(taus[name]) and k1 == expected,
+              f"gmres {name}: K1 launched {k1} times, the solves made "
+              f"{expected} applications")
+        del p
+        torch.cuda.empty_cache()
+    norms = out["cg"]["exact_vel_norms"]
+    scale = [max(norms[: i + 1][-2:]) for i in range(len(norms))]
+    for name in ("gmres", "gmres_fdm"):
+        diff = [abs(a - b) / n for a, b, n in zip(
+            out[name]["errors"], out["cg"]["errors"], scale)]
+        out[name]["err_diff_over_scale"] = diff
+        out[name]["err_rel_diff"] = [abs(a - b) / abs(b) for a, b in zip(
+            out[name]["errors"], out["cg"]["errors"])]
+    emit("gmres", config="taylor-green3d.yaml 25^3 ngl=3 f64, rtol 1e-10, "
+         "kle_errors", limit=KLE_AGREE_LIMIT, **out)
+    for name in ("gmres", "gmres_fdm"):
+        check(all(d <= KLE_AGREE_LIMIT for d in out[name][
+            "err_diff_over_scale"]), f"gmres {name}: KLE errors "
+              f"{out[name]['errors']} vs CG's {out['cg']['errors']}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1228,8 +1555,13 @@ def main() -> int:
     phase_cg_split(torch, problem)
     phase_taylor_green3d(torch, dev)
     phase_fdm(torch, dev)
+    k1_paths = {"main": launches,
+                "global_direct_cg_rhs": phase_global_direct(torch, dev),
+                "global_ops": phase_global_ops(torch, dev),
+                "gmres": phase_gmres(torch, dev)}
 
     record["launches"] = launches
+    record["launches_by_path"] = k1_paths
     kernels = [("fused_apply", "fused_apply.cu", "pynama_tpu/ops/fused.py:180",
                 record),
                ("fused3x_apply", "fused3x.cu", "exp/mm3x.py:41",
@@ -1246,8 +1578,8 @@ def main() -> int:
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "device_us": r["device_us"], "plain_device_us": r["plain_device_us"],
-        **{k: r[k] for k in ("gemm3x_device_us", "gemm3x_bound_us")
-           if k in r}}
+        **{k: r[k] for k in ("gemm3x_device_us", "gemm3x_bound_us",
+                             "launches_by_path") if k in r}}
         for name, src, replaces, r in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

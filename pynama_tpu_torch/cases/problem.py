@@ -1,8 +1,17 @@
-"""Case orchestration: mesh + element matrices + BC + engine + time stepping.
+"""Case orchestration: mesh + operators + BC + KLE solver + time stepping.
 
-Port of the engine path of pynama_tpu/cases/problem.py: builds everything
-from a YAML-style config dict (the reference's schema), runs the KLE solve
-and the adaptive transient in the element-local layout.
+Port of pynama_tpu/cases/problem.py: builds everything from a YAML-style
+config dict (the reference's schema), exposes the RHS evaluation, the KLE
+verification sweeps (`kle_errors`), the operator convergence tests
+(`operators_errors`) and the physics monitors (`diagnostics`).
+
+Two layouts, as in the JAX package. The element-local engine runs every
+iterative solve (solver "cg" or "gmres") and its transient. The global
+layout runs the dense direct solve, the global CG/GMRES when the engine is
+switched off (`engine=False`), `Problem.operator` (`Operators`) and the
+verification sweeps. `solver="auto"` (the default) takes the direct solve
+at or below `direct_max_dofs` velocity dofs and CG above, the reference's
+rule.
 
 The device and dtype are explicit: `Problem(config, device=..., dtype=...)`.
 State `vort`/`vel` is kept in the global node layout (n_nodes, ncomp) on the
@@ -14,12 +23,12 @@ the `functions/` libraries; `exact_fields` evaluates the case's `tests`
 library. The preconditioner is the `pc` option ("jacobi" by default, or
 "fdm" for cold and one-shot solves).
 
-Left out until their ROADMAP items: the global-layout Operators/KLESolver
-with the direct and GMRES solvers and the verification sweeps (item 10),
-IO and the CLI (item 11), gmsh meshes (item 12) and sharded runs (item 14).
+Left out until their ROADMAP items: IO, the CLI and `run`/`setup_viewer`
+(item 11), gmsh meshes (item 12) and sharded runs (item 14).
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time as _time
 
@@ -37,13 +46,53 @@ from pynama_tpu_torch.engine.local_engine import (apply_vorticity_bc,
 from pynama_tpu_torch.functions import get_function_lib
 from pynama_tpu_torch.mesh import BoxMesh
 from pynama_tpu_torch.ops import local as L
+from pynama_tpu_torch.ops.apply import (ElementOp, apply_op, fanin_sum_np,
+                                        make_element_op)
+from pynama_tpu_torch.solver.kle import KLESolver, build_system
 from pynama_tpu_torch.solver.timestep import adaptive_solve
 
 logger = logging.getLogger("pynama_tpu_torch.problem")
 
+#: the solver names `Problem(solver=...)` takes
+SOLVERS = ("auto", "direct", "cg", "gmres")
+
+
+@dataclasses.dataclass(frozen=True)
+class Operators:
+    """Row-scaled nodal operators (reference Operators).
+
+    The assembled SrT/DivSrT/Curl are row-scaled by the reciprocal lumped
+    weight so applications return nodal field values.
+    """
+    curl_op: ElementOp     # velocity -> vorticity
+    srt_op: ElementOp      # velocity -> strain components
+    div_op: ElementOp      # strain -> velocity
+    winv: torch.Tensor     # (n_nodes, 1) reciprocal lumped weights
+    weight: torch.Tensor   # (n_nodes, 1) lumped weights (for error norms)
+
+    def curl(self, v):
+        return apply_op(self.curl_op, v) * self.winv
+
+    def srt(self, v):
+        return apply_op(self.srt_op, v) * self.winv
+
+    def div_srt(self, s):
+        return apply_op(self.div_op, s) * self.winv
+
+
+def compute_vtensv(vel: torch.Tensor, dim: int) -> torch.Tensor:
+    """v (x) v packed into the symmetric strain slots (reference
+    computeVtensV)."""
+    if dim == 2:
+        vx, vy = vel[:, 0], vel[:, 1]
+        return torch.stack([vx * vx, vx * vy, vy * vy], dim=1)
+    vx, vy, vz = vel[:, 0], vel[:, 1], vel[:, 2]
+    return torch.stack([vx * vx, vx * vy, vy * vy,
+                        vy * vz, vz * vz, vz * vx], dim=1)
+
 
 class Problem:
-    """A configured flow case (reference BaseProblem), engine path."""
+    """A configured flow case (reference BaseProblem)."""
 
     def __init__(self, config: dict, *, device, dtype=None, **kwargs):
         self.config = config
@@ -59,9 +108,11 @@ class Problem:
         self.start_time = float(ts.get("start-time", 0.0))
         self.end_time = float(ts.get("end-time", 1.0))
         self.max_steps = int(ts.get("max-steps", 1000))
-        #: set to a list to record (iters, loop_applies) of every KLE solve
-        #: the transient runs, in order (per right-hand side: the free-slip
-        #: stage, then the main stage); iters stays a device tensor
+        #: set to a list to record one pair per iterative KLE solve that
+        #: solve_kle, rhs and the transient run, in order (per solve_kle:
+        #: the free-slip stage, then the main stage): (iters,
+        #: loop_applies) for CG, iters a device tensor; (iters, applies)
+        #: for GMRES (solver/kle.py _masked_solve)
         self.cg_log = None
 
     # ------------------------------------------------------------------ setup
@@ -112,25 +163,83 @@ class Problem:
         logger.info("setup phases: %s",
                     {k: round(v, 2) for k, v in phases.items()})
 
+    def _element_op(self, mat, din, dout) -> ElementOp:
+        """A global ElementOp of the mesh; every operator shares the index
+        tensors `_build_operators` puts on the device."""
+        return make_element_op(mat, *self._index_pair, din, dout,
+                               self.mesh.n_nodes, device=self.device,
+                               dtype=self.dtype)
+
     def _build_operators(self):
         """Element matrices of the shared geometry (a box mesh is uniform:
-        one exact float64 build serves every element)."""
-        corners = self.mesh.cell_corners[0]
+        one exact float64 build serves every element), the global nodal
+        operators and the lumped weights."""
+        mesh = self.mesh
+        idx = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int64),
+                                        device=self.device)
+        self._index_pair = (idx(mesh.cell_nodes), idx(mesh.incidence))
+        corners = mesh.cell_corners[0]
         self._em = compute_kle_matrices(self.basis, corners)
-        self._eo = compute_operators(self.basis, corners)
+        eo = compute_operators(self.basis, corners)
+        self._eo = eo
+        wtile = np.broadcast_to(np.asarray(eo.weight, dtype=np.float64),
+                                (mesh.n_cells, mesh.nnode_el))
+        w = torch.as_tensor(
+            fanin_sum_np(mesh.cell_nodes, wtile, 1, mesh.n_nodes),
+            dtype=self.dtype, device=self.device)
+        self.operator = Operators(
+            curl_op=self._element_op(eo.Curl, self.dim, self.dim_w),
+            srt_op=self._element_op(eo.SrT, self.dim, self.dim_s),
+            div_op=self._element_op(eo.DivSrT, self.dim_s, self.dim),
+            winv=1.0 / w, weight=w)
+
+    def _resolve_solver(self) -> str:
+        """The solver the options ask for, "auto" resolved: "direct" at or
+        below direct_max_dofs velocity dofs, "cg" above (the reference's
+        rule)."""
+        cfg = get_config()
+        method = self.opts.get("solver", cfg.solver)
+        if method not in SOLVERS:
+            raise ValueError(f"unknown solver '{method}' (one of {SOLVERS})")
+        if method == "auto":
+            method = "direct" if self.mesh.n_nodes * self.dim \
+                <= cfg.direct_max_dofs else "cg"
+        return method
 
     def _build_kle_solver(self):
-        """Resolve the linear solver. The port runs the engine's PCG; the
-        global-layout direct/GMRES solvers come with ROADMAP item 10."""
-        method = self.opts.get("solver", get_config().solver)
-        if method != "cg":
-            raise NotImplementedError(
-                f"solver '{method}' is not ported yet (ROADMAP Queue A "
-                "item 10); the port runs solver='cg'")
+        cfg = get_config()
+        mesh = self.mesh
+        method = self._resolve_solver()
         self.solver_method = method
+        n_free = int(self.bc.free_main.sum())
+        K_op = self._element_op(self._em.K, self.dim, self.dim)
+        Rw_op = self._element_op(self._em.Rw, self.dim_w, self.dim)
+        sys_args = dict(K_mat_np=np.asarray(self._em.K),
+                        cell_nodes=np.asarray(mesh.cell_nodes),
+                        K_op=K_op, method=method,
+                        cg_rtol=self.opts.get("cg_rtol", cfg.cg_rtol),
+                        cg_atol=self.opts.get("cg_atol", cfg.cg_atol),
+                        cg_maxiter=self.opts.get("cg_maxiter",
+                                                 cfg.cg_maxiter),
+                        device=self.device, dtype=self.dtype)
+        main = build_system(free_mask_np=self.bc.free_main, **sys_args)
+        fs = build_system(free_mask_np=self.bc.free_fs, **sys_args) \
+            if self.bc.needs_fs_stage else None
+        self.kle = KLESolver(K_op=K_op, Rw_op=Rw_op, main=main, fs=fs)
+        logger.info("KLE solver: %s (%d free dofs / %d nodes)", method,
+                    n_free, mesh.n_nodes)
 
     def _build_engine(self):
-        """Build the element-local execution engine (the hot path)."""
+        """Build the element-local execution engine (the hot path).
+
+        Used for every iterative (CG, GMRES) solve; the dense-direct method
+        keeps the global-layout path (its Cholesky factor lives on the
+        global dof vector). Disable explicitly with engine=False."""
+        use = self.opts.get("engine",
+                            self.solver_method in ("cg", "gmres"))
+        self.engine_ops = None
+        if not use:
+            return
         cfg = get_config()
         eo = self._eo
         self.engine_ops = build_engine(
@@ -145,7 +254,8 @@ class Problem:
             # iteration, which the warm-started RK stages do not pay back
             # (the JAX package's measurement); request pc="fdm" for cold
             # and one-shot solves
-            pc=self.opts.get("pc", "jacobi"))
+            pc=self.opts.get("pc", "jacobi"),
+            krylov="gmres" if self.solver_method == "gmres" else "cg")
 
     # ------------------------------------------------- local layout shuttles
     def to_local(self, x) -> torch.Tensor:
@@ -200,27 +310,74 @@ class Problem:
             out.append(fn(coords, a, *args).to(self.dtype))
         return out
 
+    def _field(self, x) -> torch.Tensor:
+        """A global field as a tensor of the runtime dtype on the device."""
+        return torch.as_tensor(x, dtype=self.dtype, device=self.device)
+
     # ------------------------------------------------------------------- RHS
     def solve_kle(self, vort, vel, t=None):
-        """Apply BCs and run the (two-stage) KLE solve; global in and out."""
+        """Apply BCs and run the (possibly two-stage) KLE solve (evalRHS
+        pre-solve chain); global fields in and out, on the device."""
         t = self.start_time if t is None else t
-        vort_l, vel_l = solve_kle_local(self.engine_ops, self.to_local(vort),
-                                        self.to_local(vel), t)
-        kw = dict(dtype=self.dtype, device=self.device)
-        return (torch.as_tensor(self.to_global(vort_l, self.dim_w), **kw),
-                torch.as_tensor(self.to_global(vel_l, self.dim), **kw))
+        if self.engine_ops is not None:
+            vort_l, vel_l = solve_kle_local(
+                self.engine_ops, self.to_local(vort), self.to_local(vel), t,
+                self.cg_log)
+            return (self._field(self.to_global(vort_l, self.dim_w)),
+                    self._field(self.to_global(vel_l, self.dim)))
+        vort = self.bc.apply_vorticity(self._field(vort), t, self.nu)
+        vel = self.bc.apply_velocity(self._field(vel), t, self.nu)
+        if self.kle.is_ns:
+            vel_fs = self.kle.solve_fs(vort, vel, self.cg_log)
+            vel_fs = self.bc.apply_tangential(vel_fs, t, self.nu)
+            vort = self.operator.curl(vel_fs)
+        vel = self.kle.solve(vort, vel, self.cg_log)
+        return vort, vel
+
+    def rhs(self, t, vort, vel_prev):
+        """d(vort)/dt in the global layout (reference evalRHS), evaluated
+        at the stage vector `vort`. Returns (f, vel)."""
+        _, vel = self.solve_kle(vort, vel_prev, t)
+        vtensv = compute_vtensv(vel, self.dim)
+        op = self.operator
+        aux1 = 2.0 * self.mu * apply_op(op.srt_op, vel) * op.winv \
+            - self.rho * vtensv
+        rhs_v = op.div_srt(aux1) / self.rho
+        f = op.curl(rhs_v)
+        return f, vel
 
     # ----------------------------------------------------------- time solving
     def start_solver(self, post_step=None, dt0=None, atol=1e-4, rtol=1e-4,
                      tableau="5bs"):
-        """Integrate vorticity from start to end time (reference ts.solve).
-        Returns (t, accepted_steps)."""
+        """Integrate vorticity from start to end time (reference ts.solve):
+        in the element-local layout when the engine is built, else in the
+        global layout through `rhs`. Returns (t, accepted_steps)."""
         if dt0 is None:
             dt0 = (self.end_time - self.start_time) / (10 * self.max_steps)
         if int(self.opts.get("ndev", 1)) > 1:
+            if self.engine_ops is None:
+                raise ValueError("ndev>1 requires the element-local engine "
+                                 "(box mesh + iterative solver)")
             raise NotImplementedError("sharded runs are not ported yet "
                                       "(ROADMAP Queue A item 14)")
-        return self._start_solver_local(post_step, dt0, atol, rtol, tableau)
+        if self.engine_ops is not None:
+            return self._start_solver_local(post_step, dt0, atol, rtol,
+                                            tableau)
+
+        def _post(step, t, dt, y, aux):
+            logger.info("Converged: Step %4d | Time %.4e | dt %.2e",
+                        step, t, dt)
+            if post_step is not None:
+                post_step(step, t, dt, y, aux)
+
+        t, vort, vel, steps = adaptive_solve(
+            self.rhs, self.start_time, self.end_time,
+            self._field(self.vort), self._field(self.vel), dt0=dt0,
+            max_steps=self.max_steps, atol=atol, rtol=rtol, tableau=tableau,
+            post_step=_post,
+            accept_fn=lambda t, w: self.bc.apply_vorticity(w, t, self.nu))
+        self.vort, self.vel = vort, vel
+        return t, steps
 
     def _start_solver_local(self, post_step, dt0, atol, rtol,
                             tableau="5bs"):
@@ -250,3 +407,58 @@ class Problem:
         self.vort = torch.as_tensor(self.to_global(vort_l, self.dim_w), **kw)
         self.vel = torch.as_tensor(self.to_global(vel_l, self.dim), **kw)
         return t, steps
+
+    # ------------------------------------------------------------ test suite
+    def kle_errors(self, viscous_times):
+        """Velocity L2 error of the KLE solve against exact fields
+        (getKLEError), t = tau^2/(4 nu); each solve warm-starts from the
+        previous one's velocity."""
+        errors = []
+        vel = self.vel
+        for tau in viscous_times:
+            time = tau**2 / (4 * self.nu)
+            exact_vel, exact_vort = self.exact_fields(time)
+            _, vel = self.solve_kle(exact_vort, vel, time)
+            errors.append(float(torch.linalg.norm(
+                (exact_vel - vel).ravel())))
+        return errors
+
+    def operators_errors(self, viscous_time=1.0):
+        """Weighted-L2 errors of the convective, diffusive and curl
+        operators against the exact fields (OperatorsTests)."""
+        time = viscous_time**2 / (4 * self.nu)
+        exact_vel, exact_vort, exact_conv, exact_diff = self.exact_fields(
+            time, ("velocity", "vorticity", "convective", "diffusive"))
+        op = self.operator
+
+        vtensv = compute_vtensv(exact_vel, self.dim)
+        convective = op.curl(op.div_srt(vtensv))
+        aux1 = 2.0 * self.mu * op.srt(exact_vel)
+        diffusive = op.curl(op.div_srt(aux1) / self.rho)
+        curl = op.curl(exact_vel)
+
+        def werr(err):
+            return float(torch.sqrt(((err * err) * op.weight).sum()))
+
+        return (werr(convective - exact_conv), werr(diffusive - exact_diff),
+                werr(curl - exact_vort))
+
+    def diagnostics(self, vel=None, vort=None) -> dict:
+        """Physics monitors: kinetic energy, enstrophy and the divergence
+        norm, weighted quadrature integrals over the domain (numpy arrays
+        or tensors in; the current state by default)."""
+        vel = self._field(self.vel if vel is None else vel)
+        vort = self._field(self.vort if vort is None else vort)
+        op = self.operator
+        w = op.weight
+        ke = 0.5 * self.rho * float(((vel * vel).sum(dim=1, keepdim=True)
+                                     * w).sum())
+        ens = 0.5 * float(((vort * vort).sum(dim=1, keepdim=True)
+                           * w).sum())
+        # div(v) = trace of the strain tensor; the diagonal slots of the
+        # reduced symmetric packing are [0, 2] (2D) / [0, 2, 4] (3D)
+        strain = op.srt(vel)
+        diag_slots = [0, 2] if self.dim == 2 else [0, 2, 4]
+        div = strain[:, diag_slots].sum(dim=1, keepdim=True)
+        div_l2 = float(torch.sqrt(((div * div) * w).sum()))
+        return {"kinetic_energy": ke, "enstrophy": ens, "div_l2": div_l2}

@@ -26,8 +26,12 @@ torch.set_float32_matmul_precision("highest")
 class FrameworkConfig:
     #: runtime dtype for fields and operators on the device
     dtype: torch.dtype = torch.float32
-    #: linear solver; the port runs the matrix-free PCG only
-    solver: str = "cg"
+    #: linear solver: "cg" (matrix-free PCG), "gmres" (restarted GMRES),
+    #: "direct" (dense Cholesky), or "auto" (direct at or below
+    #: direct_max_dofs velocity dofs, cg above)
+    solver: str = "auto"
+    #: dense-direct threshold (number of velocity dofs)
+    direct_max_dofs: int = 40_000
     #: CG relative/absolute tolerance and iteration cap
     cg_rtol: float = 1e-12
     cg_atol: float = 0.0

@@ -9,8 +9,9 @@ Pipeline per RHS evaluation (reference evalRHS):
 
     BC write  : dense-mask merge with a value buffer (constant sides baked
                 in, analytic-function sides evaluated and scattered on top)
-    KLE solve : matrix-free PCG on DSS(x @ K^T), preconditioned by the
-                assembled diagonal (Jacobi) or fast diagonalization (FDM)
+    KLE solve : matrix-free PCG (or restarted GMRES, krylov="gmres") on
+                DSS(x @ K^T), preconditioned by the assembled diagonal
+                (Jacobi) or fast diagonalization (FDM)
     operators : curl/SrT/DivSrT as DSS(x @ matT) + winv scaling
     v (x) v   : component extraction/packing via column gathers
 
@@ -29,8 +30,8 @@ free-slip stage. Constant sides are merged in declaration order into the
 constant buffers; analytic-function sides are scattered on top of them,
 each in its turn, so a function side wins a shared corner.
 
-Left out until their ROADMAP items: GMRES (item 10), sum factorization
-(item 12) and sharding (item 14). The Schwarz preconditioner is an option
+Left out until their ROADMAP items: sum factorization (item 12) and
+sharding (item 14). The Schwarz preconditioner is an option
 the port leaves out.
 """
 from __future__ import annotations
@@ -47,6 +48,7 @@ from pynama_tpu_torch.ops import local as L
 from pynama_tpu_torch.ops.fused import fused_apply
 from pynama_tpu_torch.solver.cg import pcg
 from pynama_tpu_torch.solver.fdm import FDMOps, build_fdm, fdm_apply
+from pynama_tpu_torch.solver.gmres import gmres
 
 logger = logging.getLogger("pynama_tpu_torch.engine")
 
@@ -118,6 +120,8 @@ class EngineOps:
     #: FDM data per masked system; None unless pc == "fdm"
     fdm_main: Optional[FDMOps] = None
     fdm_fs: Optional[FDMOps] = None
+    #: Krylov method of the masked solves: "cg" or "gmres"
+    krylov: str = "cg"
 
     @property
     def nn(self):
@@ -249,7 +253,7 @@ def _engine_func_sides(mesh, bc) -> list:
 def ops_from_numpy(arrays: dict, *, ngl, nelem, dim, dim_w, dim_s, is_ns,
                    cg_rtol, cg_atol, cg_maxiter, device, dtype,
                    func_sides=(), pc="jacobi", fdm_main=None,
-                   fdm_fs=None) -> EngineOps:
+                   fdm_fs=None, krylov="cg") -> EngineOps:
     """EngineOps from numpy arrays keyed by ARRAY_FIELDS (the fields of the
     JAX package's EngineOps carry over one to one). Float arrays are cast to
     `dtype`, index arrays to int64, scalars to Python floats. `func_sides`
@@ -292,26 +296,27 @@ def ops_from_numpy(arrays: dict, *, ngl, nelem, dim, dim_w, dim_s, is_ns,
         ngl=int(ngl), nelem=nelem, dim=int(dim), dim_w=int(dim_w),
         dim_s=int(dim_s), is_ns=bool(is_ns), cg_rtol=float(cg_rtol),
         cg_atol=float(cg_atol), cg_maxiter=int(cg_maxiter),
-        func_sides=fsides, pc=pc, fdm_main=fdm_main, fdm_fs=fdm_fs)
+        func_sides=fsides, pc=pc, fdm_main=fdm_main, fdm_fs=fdm_fs,
+        krylov=krylov)
 
 
 def build_engine(mesh, bc, em_K, em_Rw, op_curl, op_srt, op_div, op_weight,
                  rho, mu, *, device, dtype, cg_rtol=1e-12, cg_atol=0.0,
                  cg_maxiter=2000, pc="jacobi", krylov="cg") -> EngineOps:
-    """Assemble EngineOps from setup-time numpy data (box mesh, PCG).
+    """Assemble EngineOps from setup-time numpy data (box mesh).
 
     em_*/op_* are the dense element matrices from `elements/kle.py`;
     op_weight is the per-local-node quadrature weight used for lumping.
     pc="fdm" builds the fast-diagonalization data of both masked systems
     (numpy setup, tensors on `device`); as in the reference, pc falls back
-    to "jacobi" when `build_fdm` finds no tensor structure.
+    to "jacobi" when `build_fdm` finds no tensor structure. krylov="gmres"
+    solves the masked systems with restarted GMRES(30) instead of PCG.
     """
     if not getattr(mesh, "is_box", False):
         raise NotImplementedError("unstructured meshes are not ported yet "
                                   "(ROADMAP Queue A item 12)")
-    if krylov != "cg":
-        raise NotImplementedError(f"krylov='{krylov}' is not ported yet "
-                                  "(GMRES: ROADMAP Queue A item 10)")
+    if krylov not in ("cg", "gmres"):
+        raise ValueError(f"unknown Krylov method '{krylov}'")
     if pc == "schwarz":
         raise NotImplementedError(
             "pc='schwarz' is an option the port leaves out: it measured "
@@ -338,7 +343,7 @@ def build_engine(mesh, bc, em_K, em_Rw, op_curl, op_srt, op_div, op_weight,
         dim_w=mesh.dim_w, dim_s=mesh.dim_s, is_ns=bc.needs_fs_stage,
         cg_rtol=cg_rtol, cg_atol=cg_atol, cg_maxiter=cg_maxiter,
         device=device, dtype=dtype, func_sides=_engine_func_sides(mesh, bc),
-        pc=pc, fdm_main=fdm_main, fdm_fs=fdm_fs)
+        pc=pc, fdm_main=fdm_main, fdm_fs=fdm_fs, krylov=krylov)
 
 
 # ---------------------------------------------------------------------------
@@ -436,9 +441,11 @@ def vtensv(ops: EngineOps, vel):
 
 def _masked_solve(ops: EngineOps, free, vort, vel, stats=None, fdm=None):
     """Solve the Dirichlet-condensed KLE system on the free subspace with
-    preconditioned CG (FDM when ops.pc == "fdm" and `fdm` is given, else
-    Jacobi). `stats`, when a list, gets the solve's (iters, loop_applies)
-    (see solver/cg.py CGResult)."""
+    preconditioned CG, or GMRES when ops.krylov == "gmres" (FDM when
+    ops.pc == "fdm" and `fdm` is given, else Jacobi). `stats`, when a
+    list, gets the solve's (iters, loop_applies) for CG (see solver/cg.py
+    CGResult: the A0 residual is not counted) or (iters, applies) for GMRES
+    (see solver/gmres.py GMRESResult: every application counted)."""
     con = 1.0 - free
     vc = con * vel
     b = free * (_apply_mat(ops, ops.lay_v, vort, ops.RwT)
@@ -472,18 +479,25 @@ def _masked_solve(ops: EngineOps, free, vort, vel, stats=None, fdm=None):
         def M_inv(r):
             return r / dmask
 
-    res = pcg(A, b, free * vel + vc, M_inv=M_inv,
-              rtol=ops.cg_rtol, atol=ops.cg_atol,
-              maxiter=ops.cg_maxiter, dot=_dot_v(ops), A0=A0)
+    if ops.krylov == "gmres":
+        res = gmres(A0, b, free * vel + vc, M_inv=M_inv,
+                    rtol=ops.cg_rtol, atol=ops.cg_atol,
+                    maxiter=ops.cg_maxiter, dot=_dot_v(ops))
+        counted = res.applies
+    else:
+        res = pcg(A, b, free * vel + vc, M_inv=M_inv,
+                  rtol=ops.cg_rtol, atol=ops.cg_atol,
+                  maxiter=ops.cg_maxiter, dot=_dot_v(ops), A0=A0)
+        counted = res.loop_applies
     if stats is not None:
-        stats.append((res.iters, res.loop_applies))
+        stats.append((res.iters, counted))
     return res.x
 
 
 def solve_kle_local(ops: EngineOps, vort, vel, time, stats=None):
     """BC application + (two-stage) KLE solve, local layout (evalRHS
-    pre-solve chain). `stats`, when a list, gets one (iters, loop_applies)
-    per solve (free-slip stage first on no-slip problems)."""
+    pre-solve chain). `stats`, when a list, gets one pair per solve (see
+    _masked_solve; free-slip stage first on no-slip problems)."""
     vort = apply_vorticity_bc(ops, vort, time)
     vel = apply_velocity_bc(ops, vel, time)
     if ops.is_ns:

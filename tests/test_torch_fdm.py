@@ -10,6 +10,8 @@ cold-start CG iterations on both stages at 6^3 ngl=4 by the reference's
 ratios, it reaches the Jacobi solution, and a Taylor-Green transient under
 it takes Jacobi's steps and equals JAX's pc="fdm" run.
 """
+import contextlib
+import importlib
 import logging
 
 import numpy as np
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 from pynama_tpu.cases import Problem as JProblem
+from pynama_tpu.engine import local_engine as JE
 from pynama_tpu.solver.fdm import fdm_apply as j_fdm_apply
 from pynama_tpu_torch.cases import Problem as TProblem
 from pynama_tpu_torch.engine import local_engine as TE
@@ -27,6 +30,8 @@ from test_fdm import cavity, tg
 
 torch.set_num_threads(1)
 
+# the module (pynama_tpu.solver re-exports a function of the same name)
+j_gmres_mod = importlib.import_module("pynama_tpu.solver.gmres")
 F64 = torch.float64
 SIZES = {2: (4, 4), 3: (3, 3)}           # dim -> (nelem per axis, ngl)
 _CACHE = {}
@@ -47,6 +52,24 @@ def _pair(dim):
         pt.setUp()
         _CACHE[dim] = (pj, pt)
     return _CACHE[dim]
+
+
+@contextlib.contextmanager
+def _recording_jax_gmres(iters):
+    """The JAX package's gmres, appending each solve's iteration count to
+    `iters` (its engine imports gmres from the module at call time)."""
+    orig = j_gmres_mod.gmres
+
+    def rec(*args, **kwargs):
+        res = orig(*args, **kwargs)
+        iters.append(int(res.iters))
+        return res
+
+    j_gmres_mod.gmres = rec
+    try:
+        yield
+    finally:
+        j_gmres_mod.gmres = orig
 
 
 def _consistent(p, seed):
@@ -196,7 +219,9 @@ def test_fdm_taylor_green_transient():
 def test_pc_fallback_and_left_out_options(caplog):
     """No tensor structure to diagonalize (nothing free along an axis):
     pc falls back to "jacobi", as in the reference, and says so. The
-    Schwarz preconditioner and GMRES raise, naming why."""
+    Schwarz preconditioner raises, naming why. krylov="gmres" builds, and
+    its FDM-preconditioned solve takes the JAX package's iterations to the
+    same velocity."""
     cfg = cavity(1, 2, 2)
     with caplog.at_level(logging.WARNING, "pynama_tpu_torch.engine"):
         p = TProblem(cfg, device="cpu", dtype=F64, solver="cg", pc="fdm")
@@ -208,9 +233,27 @@ def test_pc_fallback_and_left_out_options(caplog):
     assert "pc='jacobi'" in caplog.text
     with pytest.raises(NotImplementedError, match="2.7x"):
         TProblem(cfg, device="cpu", solver="cg", pc="schwarz").setUp()
-    pt = TProblem(cavity(2, 3, 2), device="cpu", solver="cg")
+    pt = TProblem(cavity(2, 3, 2), device="cpu", dtype=F64, solver="cg")
     pt.setUp()
-    with pytest.raises(NotImplementedError, match="item 10"):
+    ops = TE.build_engine(pt.mesh, pt.bc, pt._em.K, pt._em.Rw, pt._eo.Curl,
+                          pt._eo.SrT, pt._eo.DivSrT, pt._eo.weight, 1.0,
+                          0.01, device="cpu", dtype=F64, krylov="gmres",
+                          pc="fdm", cg_rtol=1e-12)
+    assert ops.krylov == "gmres" and ops.pc == "fdm"
+    with pytest.raises(ValueError, match="Krylov"):
         TE.build_engine(pt.mesh, pt.bc, pt._em.K, pt._em.Rw, pt._eo.Curl,
                         pt._eo.SrT, pt._eo.DivSrT, pt._eo.weight, 1.0, 0.01,
-                        device="cpu", dtype=F64, krylov="gmres")
+                        device="cpu", dtype=F64, krylov="bicgstab")
+    pj = JProblem(cavity(2, 3, 2), solver="gmres", pc="fdm", cg_rtol=1e-12)
+    pj.setUp()
+    rng = np.random.default_rng(4)
+    vort = rng.standard_normal((pt.mesh.n_nodes, pt.dim_w))
+    jits, stats = [], []
+    with _recording_jax_gmres(jits):
+        _, vj = JE.solve_kle_local(pj.engine_ops, pj.to_local(vort),
+                                   pj.to_local(pj.vel), 0.0)
+    _, vt = TE.solve_kle_local(ops, pt.to_local(vort), pt.to_local(pt.vel),
+                               0.0, stats)
+    assert [it for it, _ in stats] == jits and len(jits) == 2
+    np.testing.assert_allclose(vt.numpy(), np.asarray(vj), rtol=1e-8,
+                               atol=1e-10)

@@ -52,10 +52,29 @@ def test_cavity_transient_matches(dim, nelem):
 
 
 def test_problem_rejects_unported_paths():
+    """solver="direct" runs and matches the JAX package; ndev>1 without
+    the engine (no solver option: "auto" resolves this small case to the
+    direct solve) raises the reference's ValueError, and with the engine
+    raises until sharding is ported (item 14)."""
     cfg = cavity_config(ngl=3, nelem=2, dim=2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TProblem(cfg, device="cpu", solver="direct").setUp()
+    p = TProblem(cfg, device="cpu", dtype=torch.float64, solver="direct")
+    p.setUp()
+    pj = JProblem(cfg, solver="direct")
+    pj.setUp()
+    assert p.solver_method == pj.solver_method == "direct"
+    assert p.engine_ops is None and pj.engine_ops is None
+    rng = np.random.default_rng(0)
+    vort = rng.standard_normal((p.mesh.n_nodes, p.dim_w))
+    got = p.solve_kle(vort, p.vel, 0.0)[1].numpy()
+    want = np.asarray(pj.solve_kle(jnp.asarray(vort), pj.vel, 0.0)[1])
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-14)
     p = TProblem(cfg, device="cpu", dtype=torch.float64, ndev=2)
+    p.setUp()
+    assert p.solver_method == "direct" and p.engine_ops is None
+    with pytest.raises(ValueError, match="element-local engine"):
+        p.start_solver()
+    p = TProblem(cfg, device="cpu", dtype=torch.float64, solver="cg",
+                 ndev=2)
     p.setUp()
     with pytest.raises(NotImplementedError, match="item 14"):
         p.start_solver()
