@@ -1,7 +1,7 @@
 """GPU smoke run of pynama_tpu_torch: build the kernels, check them, drive
 the main path, the analytic-function case, the FDM preconditioner, the
-global-layout path (direct, Operators, GMRES) and the decomposition
-drivers at full size.
+global-layout path (direct, Operators, GMRES), the command line
+(run_case.py and its IO) and the decomposition drivers at full size.
 
     python3 chip_smoke.py
 
@@ -113,11 +113,35 @@ exits non-zero without the final result line:
             iteration, K1's launches == expected in each, the errors
             within KLE_AGREE_LIMIT of CG's, relative to the exact
             velocity's norm (or its warm start's, where that is larger)
+13. cli     the command line, pynama_tpu_torch.run_case, in process, each
+            run in a directory of its own under a temporary one (the IO
+            route is printed: "hdf5" where h5py imports, else "binary"):
+            (a) cavity.yaml at its own size (30x10x10 ngl=3, 80,703
+            velocity dofs, f32, "auto" -> CG at rtol 1e-6, dt0 the file's
+            own) cut to CLI_STEPS accepted steps by a JSON copy of the
+            file, through run_case.main (without h5py: the same setup and
+            Problem.run(fast_io=True) with no viewer), against
+            Problem.setUp(); start_solver() on the same config: same steps
+            and CG iterations, fields within CLI_FIELD_LIMIT, K1 launches
+            == the applications its CG log implies, the last snapshot's
+            vorticity == the final p.vort; setup phases, s/step with the
+            writer and without, the per-step save cost as their
+            difference and timed alone (to_global, the write), peak
+            memory; (b) the -fast-io run (without h5py: (a) itself): the
+            native writer async, every snapshot read back equal to the
+            field saved; (c) -checkpoint then -resume (h5py only: else
+            recorded as not run): the resumed run starts at the
+            checkpoint's t from its fields, bitwise; (d) taylor-green3d.yaml
+            -test kle at 25^3 ngl=3 f32: the KLE |error| within
+            KLE_ERR_LIMIT of the JAX package's (KLE_REF_ERR), K1 launches
+            == expected; (e) -trace around a 1-step cavity run (3x1x1
+            mesh): the Chrome trace holds K1 kernel records
 
 The last three lines are the card's name and power limit (nvidia-smi), the
 record of the four kernels as JSON (K1's also with `launches_by_path`: its
 launches in the main path's run and in each later path's, each counted from
-0: the global_direct CG rhs, global_ops, the gmres phase's GMRES solves)
+0: the global_direct CG rhs, global_ops, the gmres phase's GMRES solves,
+the cli phase's production run (a) and its -test kle solve (d))
 and the result line {"ok": true, "device": {...}}. A kernel's `bound_ms` is the larger of the
 operations of its function over the card's peak rate for their type and its
 bytes (each input read once, each output written once) over the memory rate,
@@ -125,9 +149,14 @@ from the H100 SXM data-sheet peaks below.
 """
 from __future__ import annotations
 
+import contextlib
+import importlib
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -169,6 +198,20 @@ DIAG_LIMIT = 1e-8
 # round-off of that start, and CG's and GMRES's errors there differ by
 # 1.5e-5 of the field (both solves converged to rtol 1e-10)
 KLE_AGREE_LIMIT = 1e-6
+# the cli phase: taylor-green3d.yaml -test kle (25^3 ngl=3) through the
+# port's run_case at float32, CG rtol 1e-6, held to the JAX package's |error|
+# at the same config, f64 on the CPU at its default CG rtol 1e-12
+# (`python tools/kle_reference_error.py`: 2.6233e-3; at rtol 1e-6 it reads
+# 2.6834e-3, 2.3% higher). KLE_ERR_LIMIT, relative, allows that rtol effect
+# and f32 round-off of the solve (~1e-7 of the 312.2 velocity norm, ~1% of
+# the error) twice over
+KLE_REF_ERR = 0.002623331854467238
+KLE_ERR_LIMIT = 0.05
+# the cli phase's production runs: cavity.yaml cut to CLI_STEPS accepted
+# steps, the fields of the run through run_case within CLI_FIELD_LIMIT
+# (relative max-norm) of Problem.setUp(); start_solver() on the same config
+CLI_STEPS = 3
+CLI_FIELD_LIMIT = 1e-6
 # the decomposition drivers: the flagship shape, depth cut to 200 applies
 # per chain and 3 rounds
 DRIVER_ARGS = ["24", "4", "--nit", "200", "--rounds", "3"]
@@ -1533,6 +1576,400 @@ def phase_gmres(torch, dev):
     return launches
 
 
+def _importable(name: str) -> bool:
+    try:
+        importlib.import_module(name)
+        return True
+    except ImportError:
+        return False
+
+
+@contextlib.contextmanager
+def _cli_probe(torch, run_case):
+    """Instrument the run_case calls made inside: every Problem that
+    run_case.make_problem builds records its CG solves (cg_log), the
+    fields and time its production run starts from and the seconds the
+    run takes (synchronized); every BinarySnapshotWriter records the fields
+    handed to it (references; the writer copies them). Yields the list of
+    writers."""
+    from pynama_tpu_torch.io import binary
+
+    writers = []
+    make_problem, writer_cls = run_case.make_problem, \
+        binary.BinarySnapshotWriter
+
+    class Recorder(writer_cls):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.saved = []
+            # run() closes the writer at its end, and is_async then reads
+            # False: keep what it read while open
+            self.async_at_open = self.is_async
+            writers.append(self)
+
+        def save(self, step, t, **fields):
+            self.saved.append((step, t, fields))
+            super().save(step, t, **fields)
+
+    def probed(cfg, **kw):
+        p = make_problem(cfg, **kw)
+        p.cg_log = []
+        run = p.run
+
+        def timed_run(*a, **k):
+            p.run_start = (p.start_time, p.vort.clone(), p.vel.clone())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run(*a, **k)
+            torch.cuda.synchronize()
+            p.run_s = time.perf_counter() - t0
+            return out
+
+        p.run = timed_run
+        return p
+
+    run_case.make_problem, binary.BinarySnapshotWriter = probed, Recorder
+    try:
+        yield writers
+    finally:
+        run_case.make_problem = make_problem
+        binary.BinarySnapshotWriter = writer_cls
+
+
+def _cli_production(run_case, argv, hdf5):
+    """run_case's production run of argv: through main() where h5py can
+    write the viewer's HDF5/XDMF; without h5py, the steps main takes with
+    -fast-io and no viewer (Problem.run(fast_io=True) with viewer None, the
+    JAX package's own path): returns (problem, t, steps)."""
+    if hdf5:
+        return run_case.main(argv)
+    args = run_case.build_parser().parse_args(argv + ["-fast-io"])
+    p = run_case._set_up(run_case.load_case(args.case), args)
+    t, steps = p.run(fast_io=True, dt0=args.dt0)
+    return p, t, steps
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def _snapshot(hdf5, save_dir, step, name):
+    """Field `name` of snapshot `step` as run_case wrote it: the viewer's
+    HDF5 (flat) or the fast-io binary file."""
+    if hdf5:
+        import h5py
+        with h5py.File(os.path.join(save_dir,
+                                    f"vec-data-{step:05d}.h5")) as f:
+            return f[f"/fields/{name}"][()]
+    from pynama_tpu_torch.io.binary import load_snapshot
+    return load_snapshot(save_dir + "-fast", step, name)
+
+
+def phase_cli(torch, dev):
+    """The port's CLI (pynama_tpu_torch.run_case) on the card, in process:
+    (a) cavity.yaml at its own size, cut to CLI_STEPS accepted steps,
+    through run_case against Problem.setUp(); start_solver() on the same
+    config; (b) the same run under -fast-io; (c) -checkpoint then -resume
+    (h5py only); (d) taylor-green3d.yaml -test kle at 25^3 ngl=3 against the
+    JAX package's error; (e) -trace around a 1-step cavity run. Each run in
+    a directory of its own, K1's launches counted from 0 around each."""
+    from pynama_tpu_torch import run_case
+    from pynama_tpu_torch.cases import Problem
+    from pynama_tpu_torch.cases.problem import host_array
+    from pynama_tpu_torch.ops.fused import fused_apply
+    from pynama_tpu_torch.utils.profiling import TRACE_FILE, device_trace
+
+    from pynama_tpu_torch import native
+
+    check(_importable("yaml"), "cli: PyYAML is missing (case files)")
+    hdf5 = _importable("h5py")
+    row = dict(io_route="hdf5" if hdf5 else "binary", config_route="yaml")
+    # the async writer's g++ build, once per checkout, outside the timed
+    # runs (inside them it reads as ~0.5 s per step of a 3-step run)
+    t0 = time.perf_counter()
+    row["native_available"] = native.available()
+    row["native_build_s"] = time.perf_counter() - t0
+    cwd, tmp = os.getcwd(), tempfile.mkdtemp(prefix="cli-")
+    t_phase = time.perf_counter()
+    try:
+        # the case file cut to CLI_STEPS steps (JSON is YAML); dt0 stays the
+        # uncut file's default, (end - start) / (10 max-steps)
+        cfg = run_case.load_case("cavity")
+        ts = cfg["time-solver"]
+        dt0 = (ts["end-time"] - ts.get("start-time", 0)) / (
+            10 * ts["max-steps"])
+        case = {}
+        for steps in (CLI_STEPS, 1):
+            c = json.loads(json.dumps(cfg))
+            c["time-solver"]["max-steps"] = steps
+            case[steps] = os.path.join(tmp, f"cavity-{steps}.yaml")
+            with open(case[steps], "w") as f:
+                json.dump(c, f)
+        flags = ["-log", "WARNING", "-device", "cuda", "-dtype", "float32",
+                 "-cg-rtol", "1e-6", "-maxiter", "1000", "-dt0", str(dt0)]
+        argv = ["-case", case[CLI_STEPS]] + flags
+
+        def rundir(name):
+            d = os.path.join(tmp, name)
+            os.makedirs(d)
+            os.chdir(d)
+            return d
+
+        # the same config through Problem directly, no writer: once before
+        # the runs through run_case and once after them, so that a drift
+        # of the host over the phase shows beside the writer's cost
+        c3 = run_case.load_case(case[CLI_STEPS])
+
+        def direct_run():
+            torch.cuda.synchronize()
+            fused_apply.launches = 0
+            t0 = time.perf_counter()
+            p0 = Problem(c3, device=dev, dtype=torch.float32, cg_rtol=1e-6,
+                         cg_maxiter=1000)
+            p0.setUp()
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            p0.cg_log = []
+            t0 = time.perf_counter()
+            t_ref, steps_ref = p0.start_solver(dt0=dt0)
+            torch.cuda.synchronize()
+            return p0, dict(setup_s=setup_s, run_s=time.perf_counter() - t0,
+                            t=t_ref, steps=steps_ref,
+                            launches=fused_apply.launches,
+                            iters=[int(it) for it, _ in p0.cg_log])
+
+        rundir("direct")
+        p0, direct = direct_run()
+        t_ref, steps_ref, ref_iters = direct["t"], direct["steps"], \
+            direct["iters"]
+        ref = (p0.vort.cpu().numpy(), p0.vel.cpu().numpy())
+        yl, vl = p0.to_local(p0.vort), p0.to_local(p0.vel)
+        del p0
+
+        # (a) and (b): run_case's production run, with a writer attached
+        runs = {}
+        for name, extra in (("a", ["-checkpoint", "ck.h5"] if hdf5 else []),
+                            ("b", ["-fast-io"])):
+            if name == "b" and not hdf5:
+                break             # (a) already ran with -fast-io
+            d = rundir(name)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            fused_apply.launches = 0
+            t0 = time.perf_counter()
+            with _cli_probe(torch, run_case) as writers:
+                p, t_end, steps = _cli_production(run_case, argv + extra,
+                                                  hdf5)
+            torch.cuda.synchronize()
+            runs[name] = dict(p=p, t=t_end, steps=steps, dir=d,
+                              wall=time.perf_counter() - t0,
+                              launches=fused_apply.launches,
+                              peak=torch.cuda.max_memory_allocated(dev),
+                              writers=writers)
+        rundir("direct-after")
+        p0, direct_after = direct_run()
+        del p0
+        run_direct = 0.5 * (direct["run_s"] + direct_after["run_s"])
+        ra = runs["a"]
+        p = ra["p"]
+        iters = [int(it) for it, _ in p.cg_log]
+        applies = [n for _, n in p.cg_log]
+        # per rhs_local of the no-slip case: 10 applications outside CG
+        expected = 10 * (len(p.cg_log) // 2) + sum(applies)
+        vort, vel = p.vort.cpu().numpy(), p.vel.cpu().numpy()
+        save_dir = os.path.join(ra["dir"], cfg["save-dir"])
+        snap = _snapshot(hdf5, save_dir, ra["steps"], "vorticity")
+        row["a"] = dict(
+            config="cavity.yaml 30x10x10 ngl=3 f32 (auto -> cg), "
+            f"-cg-rtol 1e-6 -maxiter 1000 -dt0 {dt0}, depth cut to "
+            f"{CLI_STEPS} steps", velocity_dofs=p.mesh.n_nodes * p.dim,
+            solver=p.solver_method, fused=p.engine_ops.fused,
+            setup_phases_s=p.setup_phases,
+            setup_s_direct=[direct["setup_s"], direct_after["setup_s"]],
+            accepted_steps=ra["steps"], t_end=ra["t"], t_end_direct=t_ref,
+            wall_s=ra["wall"],
+            run_s_with_writer=p.run_s,
+            run_s_without=[direct["run_s"], direct_after["run_s"]],
+            s_per_step_with_writer=p.run_s / max(ra["steps"], 1),
+            s_per_step_without=run_direct / max(steps_ref, 1),
+            save_cost_s_per_step_diff=(p.run_s - run_direct)
+            / max(ra["steps"], 1),
+            cg_iters=iters, cg_iters_direct=ref_iters,
+            k1_launches=ra["launches"], k1_expected=expected,
+            k1_launches_direct=[direct["launches"], direct_after["launches"]],
+            peak_mem_bytes=ra["peak"],
+            vort_rel_diff=_rel(vort, ref[0]), vel_rel_diff=_rel(vel, ref[1]),
+            files=sorted(os.listdir(save_dir + ("" if hdf5 else "-fast"))))
+
+        # the per-step save alone: to_global of both fields, then the write
+        # (the fast-io writer's save, or the viewer's HDF5 save_data)
+        os.chdir(ra["dir"])           # the viewer's save-dir is relative
+        def timed(fn, reps=3):
+            out = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                out.append(time.perf_counter() - t0)
+            return float(np.median(out))
+
+        to_global = timed(lambda: (host_array(p.to_global(yl, p.dim_w)),
+                                   host_array(p.to_global(vl, p.dim))))
+        w, u = host_array(p.to_global(yl, p.dim_w)), host_array(
+            p.to_global(vl, p.dim))
+        from pynama_tpu_torch.io.binary import BinarySnapshotWriter
+        bw = BinarySnapshotWriter(os.path.join(tmp, "save-alone"))
+        row["save_alone_s"] = dict(
+            to_global=to_global,
+            binary_submit=timed(lambda: bw.save(0, 0.0, vorticity=w,
+                                                velocity=u)),
+            binary_submit_and_flush=timed(lambda: (
+                bw.save(0, 0.0, vorticity=w, velocity=u), bw.flush())))
+        bw.close()
+        if hdf5:
+            row["save_alone_s"]["hdf5_save_data"] = timed(
+                lambda: p.viewer.save_data(0, 0.0, vorticity=w, velocity=u))
+        emit("cli", **row)
+        check(ra["steps"] == CLI_STEPS == steps_ref,
+              f"cli (a): accepted {ra['steps']} / {steps_ref} steps, want "
+              f"{CLI_STEPS}")
+        check(p.solver_method == "cg" and p.engine_ops.fused,
+              "cli (a): want the engine's CG through K1")
+        check(ra["launches"] > 0 and ra["launches"] == expected,
+              f"cli (a): K1 launched {ra['launches']} times, the run made "
+              f"{expected} operator applications")
+        check(iters == ref_iters == direct_after["iters"], "cli (a): CG "
+              "iterations differ from the direct runs'")
+        check(max(row["a"]["vort_rel_diff"], row["a"]["vel_rel_diff"])
+              <= CLI_FIELD_LIMIT, "cli (a): fields differ from the direct "
+              f"run's by {row['a']['vort_rel_diff']:.3e} / "
+              f"{row['a']['vel_rel_diff']:.3e}")
+        check(np.array_equal(snap.ravel(), vort.ravel()),
+              "cli (a): the last snapshot's vorticity is not the final "
+              "p.vort")
+        if hdf5:
+            check(os.path.exists(os.path.join(save_dir, "mesh.h5"))
+                  and os.path.exists(os.path.join(
+                      save_dir, f"{cfg['name']}.xmf")),
+                  "cli (a): mesh.h5 or the .xmf index is missing")
+
+        # (b) the fast-io run (on the binary route: (a) itself)
+        rb = runs["b" if hdf5 else "a"]
+        wr = rb["writers"]
+        check(len(wr) == 1 and wr[0].async_at_open,
+              "cli (b): the fast-io writer is not the native async one")
+        fast = os.path.join(rb["dir"], cfg["save-dir"] + "-fast")
+        from pynama_tpu_torch.io.binary import load_snapshot
+        for step, _, fields in wr[0].saved:
+            for name, arr in fields.items():
+                check(np.array_equal(load_snapshot(fast, step, name), arr),
+                      f"cli (b): snapshot {step} {name} read back differs")
+        rp = rb["p"]
+        row_b = dict(run=("b" if hdf5 else "a"),
+                     is_async=wr[0].async_at_open,
+                     snapshots=len(wr[0].saved), accepted_steps=rb["steps"],
+                     s_per_step=rp.run_s / max(rb["steps"], 1),
+                     save_cost_s_per_step_diff=(rp.run_s - run_direct)
+                     / max(rb["steps"], 1), k1_launches=rb["launches"])
+        check(len(wr[0].saved) == rb["steps"] == CLI_STEPS,
+              f"cli (b): {len(wr[0].saved)} snapshots for {rb['steps']} "
+              "steps")
+
+        # (c) -checkpoint (written by (a)) then -resume, one more step
+        row_c = "not run: h5py is missing on this machine"
+        if hdf5:
+            rundir("c")
+            ck = os.path.join(runs["a"]["dir"], "ck.h5")
+            with open(case[1]) as f:
+                c1 = json.load(f)
+            c1["time-solver"]["end-time"] = runs["a"]["t"] + 1.0
+            path = os.path.join(tmp, "cavity-resume.yaml")
+            with open(path, "w") as f:
+                json.dump(c1, f)
+            with _cli_probe(torch, run_case):
+                pr, t_r, steps_r = run_case.main(
+                    ["-case", path, "-resume", ck] + flags)
+            t_ck, w0, v0 = pr.run_start
+            check(t_ck == runs["a"]["t"] and steps_r == 1,
+                  f"cli (c): resumed at t={t_ck}, {steps_r} steps")
+            check(torch.equal(w0.cpu(), torch.as_tensor(vort))
+                  and torch.equal(v0.cpu(), torch.as_tensor(vel)),
+                  "cli (c): the resumed fields are not the checkpoint's")
+            row_c = dict(start_t=t_ck, steps=steps_r, t_end=t_r)
+
+        # (d) taylor-green3d -test kle at its own size
+        rundir("d")
+        kle_argv = ["-case", "taylor-green3d", "-test", "kle", "-log",
+                    "WARNING", "-device", "cuda", "-dtype", "float32",
+                    "-cg-rtol", "1e-6", "-maxiter", "1000"]
+        torch.cuda.synchronize()
+        fused_apply.launches = 0
+        t0 = time.perf_counter()
+        with _cli_probe(torch, run_case):
+            if hdf5:
+                pk, fields = run_case.main(kle_argv)
+            else:
+                args = run_case.build_parser().parse_args(kle_argv)
+                pk = run_case._set_up(run_case.load_case(args.case), args)
+                fields = run_case.kle_test_fields(pk)
+        torch.cuda.synchronize()
+        kle_s = time.perf_counter() - t0
+        k1_kle = fused_apply.launches
+        kle_expected = 3 * len(pk.cg_log) + sum(n for _, n in pk.cg_log)
+        err = float(np.linalg.norm(fields["error"]))
+        row_d = dict(config="taylor-green3d.yaml 25^3 ngl=3 f32 (auto -> "
+                     "cg), -cg-rtol 1e-6 -maxiter 1000",
+                     velocity_dofs=pk.mesh.n_nodes * pk.dim,
+                     solver=pk.solver_method, setup_phases_s=pk.setup_phases,
+                     seconds=kle_s, kle_error=err, jax_ref=KLE_REF_ERR,
+                     rel_diff=abs(err - KLE_REF_ERR) / KLE_REF_ERR,
+                     limit=KLE_ERR_LIMIT,
+                     cg_iters=[int(it) for it, _ in pk.cg_log],
+                     k1_launches=k1_kle, k1_expected=kle_expected)
+        del pk, fields
+
+        # (e) -trace around a 1-step cavity run, on a 3x1x1 mesh of the
+        # case's box under CG (at this size "auto" would take the direct
+        # solve): the trace records every host op and kernel (~120 events
+        # per CG iteration), and the full mesh's step would write ~1 GB
+        d = rundir("e")
+        trace_dir = os.path.join(d, "trace")
+        tr_argv = ["-case", case[1], "-nelem", "3", "1", "1", "-solver",
+                   "cg"] + flags
+        fused_apply.launches = 0
+        t0 = time.perf_counter()
+        with _cli_probe(torch, run_case):
+            if hdf5:
+                run_case.main(tr_argv + ["-trace", trace_dir])
+            else:
+                with device_trace(trace_dir):
+                    _cli_production(run_case, tr_argv, hdf5)
+        trace_s = time.perf_counter() - t0
+        path = os.path.join(trace_dir, TRACE_FILE)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        k1_records = sum(1 for e in events if e.get("cat") == "kernel" and (
+            "gemm_kernel" in e.get("name", "")
+            or "dss_kernel" in e.get("name", "")))
+        row_e = dict(config="cavity.yaml, -nelem 3 1 1 -solver cg, 1 step",
+                     phase_seconds=time.perf_counter() - t_phase,
+                     seconds=trace_s, trace_bytes=os.path.getsize(path),
+                     events=len(events), k1_kernel_records=k1_records,
+                     k1_launches=fused_apply.launches)
+        emit("cli_more", b=row_b, c=row_c, d=row_d, e=row_e)
+        check(k1_kle > 0 and k1_kle == kle_expected,
+              f"cli (d): K1 launched {k1_kle} times, the solve made "
+              f"{kle_expected} applications")
+        check(row_d["rel_diff"] <= KLE_ERR_LIMIT, f"cli (d): KLE |error| "
+              f"{err:.6e} vs the JAX package's {KLE_REF_ERR:.6e}")
+        check(k1_records >= 1, "cli (e): the trace holds no K1 kernel")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"cli": runs["a"]["launches"], "cli_kle": k1_kle}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1559,6 +1996,7 @@ def main() -> int:
                 "global_direct_cg_rhs": phase_global_direct(torch, dev),
                 "global_ops": phase_global_ops(torch, dev),
                 "gmres": phase_gmres(torch, dev)}
+    k1_paths.update(phase_cli(torch, dev))
 
     record["launches"] = launches
     record["launches_by_path"] = k1_paths

@@ -23,8 +23,12 @@ the `functions/` libraries; `exact_fields` evaluates the case's `tests`
 library. The preconditioner is the `pc` option ("jacobi" by default, or
 "fdm" for cold and one-shot solves).
 
-Left out until their ROADMAP items: IO, the CLI and `run`/`setup_viewer`
-(item 11), gmsh meshes (item 12) and sharded runs (item 14).
+`setup_viewer` and `run` write the HDF5/XDMF snapshots (or, with
+`fast_io`, the async binary ones) of a production run; fields leave the
+device as numpy arrays on their way to `io/`. The CLI is `run_case.py`.
+
+Left out until their ROADMAP items: gmsh meshes (item 12), IBM bodies
+(item 13) and sharded runs (item 14).
 """
 from __future__ import annotations
 
@@ -80,6 +84,15 @@ class Operators:
         return apply_op(self.div_op, s) * self.winv
 
 
+def host_array(x) -> np.ndarray:
+    """A field as a host numpy array: a tensor (the global path's state,
+    on the device) is copied off its device once; a numpy array (the local
+    path's, from to_global) passes through."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
 def compute_vtensv(vel: torch.Tensor, dim: int) -> torch.Tensor:
     """v (x) v packed into the symmetric strain slots (reference
     computeVtensV)."""
@@ -114,6 +127,7 @@ class Problem:
         #: loop_applies) for CG, iters a device tensor; (iters, applies)
         #: for GMRES (solver/kle.py _masked_solve)
         self.cg_log = None
+        self.viewer = None
 
     # ------------------------------------------------------------------ setup
     def setUp(self):
@@ -162,6 +176,10 @@ class Problem:
         self.setup_phases = phases
         logger.info("setup phases: %s",
                     {k: round(v, 2) for k, v in phases.items()})
+        if logger.isEnabledFor(logging.DEBUG):
+            from pynama_tpu_torch.utils.report import format_ops_info, \
+                ops_info
+            logger.debug(format_ops_info(ops_info(self)))
 
     def _element_op(self, mat, din, dout) -> ElementOp:
         """A global ElementOp of the mesh; every operator shares the index
@@ -255,21 +273,18 @@ class Problem:
             # (the JAX package's measurement); request pc="fdm" for cold
             # and one-shot solves
             pc=self.opts.get("pc", "jacobi"),
-            krylov="gmres" if self.solver_method == "gmres" else "cg")
+            krylov="gmres" if self.solver_method == "gmres" else "cg",
+            fused=self.opts.get("fused", True))
 
     # ------------------------------------------------- local layout shuttles
     def to_local(self, x) -> torch.Tensor:
         """(n_nodes, ncomp) global field -> (E, nn*ncomp) local tensor."""
-        if isinstance(x, torch.Tensor):
-            x = x.detach().cpu().numpy()
-        return torch.as_tensor(L.to_local(self.mesh, np.asarray(x)),
+        return torch.as_tensor(L.to_local(self.mesh, host_array(x)),
                                dtype=self.dtype, device=self.device)
 
     def to_global(self, t, ncomp) -> np.ndarray:
         """(E, nn*ncomp) consistent local field -> (n_nodes, ncomp) numpy."""
-        if isinstance(t, torch.Tensor):
-            t = t.detach().cpu().numpy()
-        return L.to_global(self.mesh, t, ncomp)
+        return L.to_global(self.mesh, host_array(t), ncomp)
 
     def _coords64(self) -> torch.Tensor:
         """Node coordinates on the device in float64 (analytic fields are
@@ -406,6 +421,59 @@ class Problem:
         kw = dict(dtype=self.dtype, device=self.device)
         self.vort = torch.as_tensor(self.to_global(vort_l, self.dim_w), **kw)
         self.vel = torch.as_tensor(self.to_global(vel_l, self.dim), **kw)
+        return t, steps
+
+    # ------------------------------------------------------------------ viewer
+    def setup_viewer(self):
+        """Configure HDF5/XDMF output (reference Paraviewer.configure +
+        saveMesh, base_problem.py:65-71)."""
+        from pynama_tpu_torch.io import Paraviewer
+        self.viewer = Paraviewer()
+        self.viewer.configure(self.dim, self.config.get("save-dir"))
+        self.viewer.save_mesh(np.asarray(self.mesh.coords))
+
+    def run(self, atol=1e-4, rtol=1e-4, dt0=None, tableau="5bs",
+            log_diagnostics=False, fast_io=False):
+        """Production run: integrate + save fields every save-n-steps
+        (reference convergedStepFunction, base_problem.py:93-103).
+
+        With fast_io=True the per-step saves go through the native async
+        binary writer (the solve loop never blocks on disk) and the
+        HDF5/XDMF ParaView layout is produced once at the end by
+        converting the binary snapshots. As in the JAX package, the local
+        layout's fields are converted to the global layout on every
+        accepted step while a writer is attached, saved or not."""
+        save_every = int(self.config.get("save-n-steps", 1))
+        bin_writer = None
+        if fast_io:
+            from pynama_tpu_torch.io.binary import BinarySnapshotWriter
+            fast_dir = str(self.config.get("save-dir", ".")) + "-fast"
+            bin_writer = BinarySnapshotWriter(fast_dir)
+
+        def post(step, t, dt, vort, vel):
+            if step % save_every != 0:
+                return
+            vort, vel = host_array(vort), host_array(vel)
+            if bin_writer is not None:
+                bin_writer.save(step, t, vorticity=vort, velocity=vel)
+            elif self.viewer is not None:
+                self.viewer.save_data(step, t, vorticity=vort, velocity=vel)
+            if log_diagnostics:
+                d = self.diagnostics(vel=vel, vort=vort)
+                logger.info("step %d t=%.6g KE=%.6g enstrophy=%.6g "
+                            "div_l2=%.3g", step, t, d["kinetic_energy"],
+                            d["enstrophy"], d["div_l2"])
+
+        t, steps = self.start_solver(post_step=post, atol=atol, rtol=rtol,
+                                     dt0=dt0, tableau=tableau)
+        if bin_writer is not None:
+            bin_writer.close()
+            if self.viewer is not None:
+                from pynama_tpu_torch.io.binary import convert_to_paraview
+                n = convert_to_paraview(bin_writer.save_dir, self.viewer)
+                logger.info("fast-io: converted %d snapshots to HDF5", n)
+        if self.viewer is not None:
+            self.viewer.write_xmf(self.case_name)
         return t, steps
 
     # ------------------------------------------------------------ test suite

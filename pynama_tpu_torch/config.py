@@ -41,6 +41,18 @@ class FrameworkConfig:
 _config = FrameworkConfig()
 
 
+def device_of(name: str, flag: str = "--device") -> torch.device:
+    """The torch device `name` names, given on the command line as `flag`;
+    cuda without a card raises (the device is never guessed, and a run
+    asked for on the card never carries on on the CPU)."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{flag} {name}: torch.cuda.is_available() is False (the plain "
+            f"versions run with {flag} cpu)")
+    return dev
+
+
 def get_config() -> FrameworkConfig:
     return _config
 

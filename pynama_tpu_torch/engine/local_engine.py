@@ -15,9 +15,12 @@ Pipeline per RHS evaluation (reference evalRHS):
     operators : curl/SrT/DivSrT as DSS(x @ matT) + winv scaling
     v (x) v   : component extraction/packing via column gathers
 
-Every operator application is `_apply_mat`, y = DSS(t @ matT), and always
-runs through `ops/fused.py::fused_apply`: the hand-written CUDA kernel on a
-GPU, its plain PyTorch version on the CPU.
+Every operator application is `_apply_mat`, y = DSS(t @ matT). With
+`fused=True` (the default) it runs through `ops/fused.py::fused_apply`: the
+hand-written CUDA kernel on a GPU, its plain PyTorch version on the CPU.
+`fused=False` (the CLI's `-fused off`, a user's choice, never taken by
+itself) runs the plain `ops/local.py` route, `dss(emm(t, matT))`, on any
+device.
 
 Correctness relies on every field staying *consistent* (duplicated interface
 slots equal): DSS assembles, masks and pointwise scalings are per-node, CG
@@ -122,6 +125,9 @@ class EngineOps:
     fdm_fs: Optional[FDMOps] = None
     #: Krylov method of the masked solves: "cg" or "gmres"
     krylov: str = "cg"
+    #: operator applications through fused_apply (True) or the plain
+    #: ops/local.py route (False, the user's `-fused off`)
+    fused: bool = True
 
     @property
     def nn(self):
@@ -253,7 +259,7 @@ def _engine_func_sides(mesh, bc) -> list:
 def ops_from_numpy(arrays: dict, *, ngl, nelem, dim, dim_w, dim_s, is_ns,
                    cg_rtol, cg_atol, cg_maxiter, device, dtype,
                    func_sides=(), pc="jacobi", fdm_main=None,
-                   fdm_fs=None, krylov="cg") -> EngineOps:
+                   fdm_fs=None, krylov="cg", fused=True) -> EngineOps:
     """EngineOps from numpy arrays keyed by ARRAY_FIELDS (the fields of the
     JAX package's EngineOps carry over one to one). Float arrays are cast to
     `dtype`, index arrays to int64, scalars to Python floats. `func_sides`
@@ -297,12 +303,13 @@ def ops_from_numpy(arrays: dict, *, ngl, nelem, dim, dim_w, dim_s, is_ns,
         dim_s=int(dim_s), is_ns=bool(is_ns), cg_rtol=float(cg_rtol),
         cg_atol=float(cg_atol), cg_maxiter=int(cg_maxiter),
         func_sides=fsides, pc=pc, fdm_main=fdm_main, fdm_fs=fdm_fs,
-        krylov=krylov)
+        krylov=krylov, fused=bool(fused))
 
 
 def build_engine(mesh, bc, em_K, em_Rw, op_curl, op_srt, op_div, op_weight,
                  rho, mu, *, device, dtype, cg_rtol=1e-12, cg_atol=0.0,
-                 cg_maxiter=2000, pc="jacobi", krylov="cg") -> EngineOps:
+                 cg_maxiter=2000, pc="jacobi", krylov="cg",
+                 fused=True) -> EngineOps:
     """Assemble EngineOps from setup-time numpy data (box mesh).
 
     em_*/op_* are the dense element matrices from `elements/kle.py`;
@@ -311,6 +318,8 @@ def build_engine(mesh, bc, em_K, em_Rw, op_curl, op_srt, op_div, op_weight,
     (numpy setup, tensors on `device`); as in the reference, pc falls back
     to "jacobi" when `build_fdm` finds no tensor structure. krylov="gmres"
     solves the masked systems with restarted GMRES(30) instead of PCG.
+    fused=False applies every operator through the plain ops/local.py
+    route instead of fused_apply.
     """
     if not getattr(mesh, "is_box", False):
         raise NotImplementedError("unstructured meshes are not ported yet "
@@ -343,7 +352,8 @@ def build_engine(mesh, bc, em_K, em_Rw, op_curl, op_srt, op_div, op_weight,
         dim_w=mesh.dim_w, dim_s=mesh.dim_s, is_ns=bc.needs_fs_stage,
         cg_rtol=cg_rtol, cg_atol=cg_atol, cg_maxiter=cg_maxiter,
         device=device, dtype=dtype, func_sides=_engine_func_sides(mesh, bc),
-        pc=pc, fdm_main=fdm_main, fdm_fs=fdm_fs, krylov=krylov)
+        pc=pc, fdm_main=fdm_main, fdm_fs=fdm_fs, krylov=krylov,
+        fused=fused)
 
 
 # ---------------------------------------------------------------------------
@@ -402,10 +412,13 @@ def _dot_v(ops: EngineOps):
 
 
 def _apply_mat(ops: EngineOps, lay, t, matT):
-    """y = DSS(t @ matT), the one hot operator-application pattern, always
-    through the fused kernel (its plain version on the CPU)."""
-    y, _ = fused_apply(t, matT, ops.nelem, ops.ngl, lay.ncomp)
-    return y
+    """y = DSS(t @ matT), the one hot operator-application pattern: the
+    fused kernel (its plain version on the CPU), or with ops.fused False
+    the plain ops/local.py route."""
+    if ops.fused:
+        y, _ = fused_apply(t, matT, ops.nelem, ops.ngl, lay.ncomp)
+        return y
+    return L.dss(lay, L.emm(t, matT))
 
 
 def apply_K(ops: EngineOps, v):

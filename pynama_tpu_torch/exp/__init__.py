@@ -1,13 +1,15 @@
 """Measurement experiments: the port's counterparts of the JAX package's
-`exp/` drivers whose kernels split the fused apply's time.
+`exp/` drivers whose kernels split the fused apply's time, and of its
+solve-overhead driver.
 
 - `fused_decomp`: K3 `variant_apply` and K4 `plainmm_apply`, and a driver
   that times fused_apply against its parts (DSS pass, seam adds, the hand
   GEMM against torch.matmul).
 - `mm3x`: K2 `fused3x_apply`, the fused apply with a 3-pass split-bf16
   tensor-core GEMM, and a driver that checks and times it.
+- `solve_overhead`: the warm two-stage KLE solve in units of K applies.
 
-Both drivers share the helpers below: the same inputs (numpy, seed 0), the
+The first two drivers share the helpers below: the same inputs (numpy, seed 0), the
 same chain `y = fn(x); x = y / (1 + max|y|)` ending in one host read, and
 variants timed interleaved round-robin, each keeping its minimum over the
 rounds. The device is explicit: asking for cuda without a card raises.
@@ -19,6 +21,8 @@ import time
 
 import numpy as np
 import torch
+
+from pynama_tpu_torch.config import device_of  # noqa: F401 (the drivers')
 
 
 def parse_args(argv, prog: str, description: str, rounds: int):
@@ -36,15 +40,6 @@ def parse_args(argv, prog: str, description: str, rounds: int):
     ap.add_argument("--device", default="cuda",
                     help="torch device; cpu runs the plain versions")
     return ap.parse_args(argv)
-
-
-def device_of(name: str) -> torch.device:
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"--device {name}: torch.cuda.is_available() is False (the "
-            "plain versions run with --device cpu)")
-    return dev
 
 
 def device_name(dev: torch.device) -> str:

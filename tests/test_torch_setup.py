@@ -5,6 +5,7 @@ masks are numpy in both packages and must agree exactly (float64 build;
 tolerance 0, or 1e-14 relative where the arithmetic runs through BLAS).
 """
 import dataclasses
+import shutil
 import subprocess
 import sys
 import os
@@ -139,3 +140,21 @@ def test_library_hash_covers_headers(tmp_path, monkeypatch):
     assert _build.SIGNATURES.keys() >= {
         "pn_fused_apply_f32", "pn_plainmm_f64", "pn_variant_apply_f32",
         "pn_fused3x_f32"}
+
+
+@pytest.mark.parametrize("card", [False, True])
+def test_chip_smoke_alone_exits_without_result(tmp_path, card):
+    """chip_smoke.py in a directory that holds nothing else of the repo
+    exits non-zero and prints no result line: without a card by its
+    no-fallback check, with one (simulated) because the port is missing."""
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    code = ("import sys, torch; "
+            + ("torch.cuda.is_available = lambda: True; " if card else "")
+            + "import chip_smoke; sys.exit(chip_smoke.main())")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+    assert ("No module named 'pynama_tpu_torch'" if card
+            else "is_available() is False") in r.stderr
