@@ -1,7 +1,8 @@
 """GPU smoke run of pynama_tpu_torch: build the kernels, check them, drive
 the main path, the analytic-function case, the FDM preconditioner, the
 global-layout path (direct, Operators, GMRES), the command line
-(run_case.py and its IO) and the decomposition drivers at full size.
+(run_case.py and its IO), gmsh meshes (quads and hexes, the gather DSS and
+the sum-factorized K) and the decomposition drivers at full size.
 
     python3 chip_smoke.py
 
@@ -53,8 +54,11 @@ exits non-zero without the final result line:
             accepted steps: the 3D no-slip cavity (3^3 ngl=3), the 3D
             Taylor-Green case (3^3 ngl=3), the flat plate with mixed walls
             (4^2 ngl=3 from t=0.1), the cavity under pc="fdm", the 2D
-            cavity-2d case (4^2 ngl=3) under solver="direct" and the 3D
-            cavity under solver="gmres" (1 step)
+            cavity-2d case (4^2 ngl=3) under solver="direct", the 3D
+            cavity under solver="gmres" (1 step), and two gmsh cases on
+            the engine with the sumfact K and the gather DSS: Taylor-Green
+            on 4^2 distorted quads (ngl=4) and 3D Taylor-Green on 3^3
+            distorted hexes (ngl=3)
 5. main     the flagship no-slip 3D lid-driven cavity (24^3 elements,
             ngl=4, float32, CG rtol 1e-6): Problem.setUp() and 2 accepted
             adaptive steps through start_solver(); prints setup phases,
@@ -136,13 +140,38 @@ exits non-zero without the final result line:
             KLE_ERR_LIMIT of the JAX package's (KLE_REF_ERR), K1 launches
             == expected; (e) -trace around a 1-step cavity run (3x1x1
             mesh): the Chrome trace holds K1 kernel records
+14. unstructured
+            gmsh meshes through Problem and run_case, written by the
+            script (bench.py's hex writer; the quad rule of
+            tests/msh_fixtures.py): (a) bench.py's hex config (10^3
+            hexes distorted by 0.12, ngl=4, f32, uniform flow, CG rtol
+            1e-6) set up with sumfact on and off: setup phases, device µs
+            and event ms of apply_K on each route and of the gather DSS
+            alone beside their bounds, peak memory; sumfact within 1e-5
+            of dense, duplicate slots bitwise equal; (b) 3D Taylor-Green
+            on those hexes, 3 steps: s/step, CG iterations, the vorticity
+            error <= 2x the JAX package's (HEX_TG3D_REF_ERR), K1 and its
+            DSS pass never launched; (c) 2D Taylor-Green on 50^2
+            distorted quads (ngl=3, 20,402 velocity dofs) with no solver
+            option: "auto" must take the direct solve; setup (host
+            assembly, device factor), s/step, the error <= 2x the JAX
+            package's (QUAD_TG_REF_ERR); (f) that case file with
+            max-steps 2 through run_case, fields within CLI_FIELD_LIMIT of
+            (c)'s after 2 steps; (d) sumfact=True on the flagship box
+            mesh: apply_K (sumfact product + K1's DSS pass, dss_pass)
+            within 1e-5 of K1's, device µs of each part beside K1's, and
+            one rhs_local of the flagship's state: K1 6 launches, the DSS
+            pass 4 + the CG loops' applications
 
 The last three lines are the card's name and power limit (nvidia-smi), the
 record of the four kernels as JSON (K1's also with `launches_by_path`: its
 launches in the main path's run and in each later path's, each counted from
 0: the global_direct CG rhs, global_ops, the gmres phase's GMRES solves,
-the cli phase's production run (a) and its -test kle solve (d))
-and the result line {"ok": true, "device": {...}}. A kernel's `bound_ms` is the larger of the
+the cli phase's production run (a) and its -test kle solve (d), the
+unstructured phase's gmsh parts (a)-(c) and (f), which must be 0, and its
+box-mesh sumfact rhs (d); and `dss_pass_launches_by_path`: its DSS pass
+launched alone in (d)) and the result line {"ok": true, "device": {...}}.
+A kernel's `bound_ms` is the larger of the
 operations of its function over the card's peak rate for their type and its
 bytes (each input read once, each output written once) over the memory rate,
 from the H100 SXM data-sheet peaks below.
@@ -212,6 +241,24 @@ KLE_ERR_LIMIT = 0.05
 # (relative max-norm) of Problem.setUp(); start_solver() on the same config
 CLI_STEPS = 3
 CLI_FIELD_LIMIT = 1e-6
+# the unstructured phase: bench.py's hex section (10^3 hexes, interior
+# vertices moved by up to 0.12 of an element, ngl=4) and cavity-2d.yaml's
+# size as 50^2 distorted quads (ngl=3); 3 accepted steps of each
+# Taylor-Green transient, 2 of the CLI run
+HEX_N, QUAD_N, MESH_DISTORT = 10, 50, 0.12
+UNSTRUCT_STEPS, UNSTRUCT_CLI_STEPS = 3, 2
+# the JAX package's own relative max-norm vorticity errors on those meshes
+# (taylor_green3d on the hexes, ngl=4, CG rtol 1e-6; taylor_green on the
+# quads, ngl=3, the engine's CG at rtol 1e-12 standing in for the direct
+# solve, whose 20,402^2 dense factor is kept off the CPU), f64 on the
+# CPU from dt0 1e-3 at atol = rtol = 1e-4, as the phase runs them, to
+# *_REF_T, the end times the phase's 3 f32 steps reached on an NVIDIA H100
+# 80GB HBM3 (`python tools/unstructured_reference_error.py`); each gate is
+# twice the error
+HEX_TG3D_REF_ERR = 0.055305306882286326
+HEX_TG3D_REF_T = 0.01695056634805064
+QUAD_TG_REF_ERR = 0.0037709075973298566
+QUAD_TG_REF_T = 0.012625623463579282
 # the decomposition drivers: the flagship shape, depth cut to 200 applies
 # per chain and 3 rounds
 DRIVER_ARGS = ["24", "4", "--nit", "200", "--rounds", "3"]
@@ -344,6 +391,140 @@ def fsns_config(nelem, ngl, start, max_steps):
                                               "up": fp}},
         "initial-conditions": fp, "tests": fp,
     }
+
+
+def write_hex_msh(path, nx, ny, nz, distort):
+    """bench.py's _write_hex_msh, to `path`: an nx x ny x nz grid of hexes
+    on [0,1]^3 as MSH 2.2, interior vertices moved by uniform(-1, 1) *
+    distort / nx per coordinate from numpy's default_rng(0), boundary quads
+    in the physical groups down/right/up/left/back/front."""
+    xs = [np.linspace(0, 1, n + 1) for n in (nx, ny, nz)]
+    X, Y, Z = np.meshgrid(*xs, indexing="ij")
+    verts = np.stack([X.ravel(), Y.ravel(), Z.ravel()], 1)
+    rng = np.random.default_rng(0)
+    interior = np.all((verts > 1e-12) & (verts < 1 - 1e-12), axis=1)
+    verts[interior] += (rng.uniform(-1, 1, (int(interior.sum()), 3))
+                        * distort / nx)
+
+    def vid(i, j, k):
+        return (i * (ny + 1) + j) * (nz + 1) + k
+
+    hexes = [[vid(i, j, k), vid(i + 1, j, k), vid(i + 1, j + 1, k),
+              vid(i, j + 1, k), vid(i, j, k + 1), vid(i + 1, j, k + 1),
+              vid(i + 1, j + 1, k + 1), vid(i, j + 1, k + 1)]
+             for i in range(nx) for j in range(ny) for k in range(nz)]
+    names = ["down", "right", "up", "left", "back", "front"]
+    quads = {
+        "down": [[vid(i, 0, k), vid(i + 1, 0, k), vid(i + 1, 0, k + 1),
+                  vid(i, 0, k + 1)] for i in range(nx) for k in range(nz)],
+        "up": [[vid(i, ny, k), vid(i + 1, ny, k), vid(i + 1, ny, k + 1),
+                vid(i, ny, k + 1)] for i in range(nx) for k in range(nz)],
+        "left": [[vid(0, j, k), vid(0, j + 1, k), vid(0, j + 1, k + 1),
+                  vid(0, j, k + 1)] for j in range(ny) for k in range(nz)],
+        "right": [[vid(nx, j, k), vid(nx, j + 1, k), vid(nx, j + 1, k + 1),
+                   vid(nx, j, k + 1)] for j in range(ny) for k in range(nz)],
+        "back": [[vid(i, j, 0), vid(i + 1, j, 0), vid(i + 1, j + 1, 0),
+                  vid(i, j + 1, 0)] for i in range(nx) for j in range(ny)],
+        "front": [[vid(i, j, nz), vid(i + 1, j, nz), vid(i + 1, j + 1, nz),
+                   vid(i, j + 1, nz)] for i in range(nx) for j in range(ny)],
+    }
+    with open(path, "w") as f:
+        f.write("$MeshFormat\n2.2 0 8\n$EndMeshFormat\n$PhysicalNames\n"
+                f"{len(names) + 1}\n")
+        for t, n in enumerate(names):
+            f.write(f'2 {t + 1} "{n}"\n')
+        f.write(f'3 {len(names) + 1} "volume"\n$EndPhysicalNames\n$Nodes\n'
+                f"{len(verts)}\n")
+        for i, v in enumerate(verts):
+            f.write(f"{i + 1} {v[0]} {v[1]} {v[2]}\n")
+        f.write("$EndNodes\n$Elements\n")
+        f.write(f"{sum(len(v) for v in quads.values()) + len(hexes)}\n")
+        eid = 1
+        for t, n in enumerate(names):
+            for q in quads[n]:
+                f.write(f"{eid} 3 2 {t + 1} {t + 1} "
+                        + " ".join(str(x + 1) for x in q) + "\n")
+                eid += 1
+        for h in hexes:
+            f.write(f"{eid} 5 2 {len(names) + 1} {len(names) + 1} "
+                    + " ".join(str(x + 1) for x in h) + "\n")
+            eid += 1
+        f.write("$EndElements\n")
+    return path
+
+
+def write_quad_msh(path, nx, ny, distort):
+    """An nx x ny grid of quads on [0,1]^2 as MSH 2.2, by the rule of
+    tests/msh_fixtures.py (grid_quad_mesh, write_msh22): interior vertices
+    moved by uniform(-1, 1) * distort * (1/nx, 1/ny) from numpy's
+    default_rng(0), counter-clockwise cells, boundary lines in the physical
+    groups down/right/up/left."""
+    X, Y = np.meshgrid(np.linspace(0, 1, nx + 1), np.linspace(0, 1, ny + 1),
+                       indexing="ij")
+    verts = np.stack([X.ravel(), Y.ravel()], axis=1)
+    rng = np.random.default_rng(0)
+    interior = ((verts[:, 0] > 0) & (verts[:, 0] < 1)
+                & (verts[:, 1] > 0) & (verts[:, 1] < 1))
+    verts[interior] += (rng.uniform(-1, 1, (int(interior.sum()), 2))
+                        * distort * np.array([1.0 / nx, 1.0 / ny]))
+
+    def vid(i, j):
+        return i * (ny + 1) + j
+
+    quads = [[vid(i, j), vid(i + 1, j), vid(i + 1, j + 1), vid(i, j + 1)]
+             for i in range(nx) for j in range(ny)]
+    lines = {
+        "down": [[vid(i, 0), vid(i + 1, 0)] for i in range(nx)],
+        "right": [[vid(nx, j), vid(nx, j + 1)] for j in range(ny)],
+        "up": [[vid(i, ny), vid(i + 1, ny)] for i in range(nx)],
+        "left": [[vid(0, j), vid(0, j + 1)] for j in range(ny)],
+    }
+    with open(path, "w") as f:
+        f.write("$MeshFormat\n2.2 0 8\n$EndMeshFormat\n$PhysicalNames\n5\n")
+        for t, name in enumerate(lines, start=1):
+            f.write(f'1 {t} "{name}"\n')
+        f.write('2 5 "fluid"\n$EndPhysicalNames\n')
+        f.write(f"$Nodes\n{len(verts)}\n")
+        for k, (x, y) in enumerate(verts, start=1):
+            f.write(f"{k} {float(x)!r} {float(y)!r} 0\n")
+        f.write("$EndNodes\n")
+        f.write(f"$Elements\n{sum(map(len, lines.values())) + len(quads)}\n")
+        eid = 1
+        for t, name in enumerate(lines, start=1):
+            for u, v in lines[name]:
+                f.write(f"{eid} 1 2 {t} {t} {u + 1} {v + 1}\n")
+                eid += 1
+        for q in quads:
+            f.write(f"{eid} 3 2 5 1 " + " ".join(str(c + 1) for c in q)
+                    + "\n")
+            eid += 1
+        f.write("$EndElements\n")
+    return path
+
+
+def hex_uniform_config(path):
+    """bench.py's hex config on the gmsh file `path`: ngl=4, rho 1, mu
+    0.01, uniform flow [1, 0, 0] on every side and as initial velocity."""
+    return {"name": "bench-hex",
+            "material-properties": {"rho": 1.0, "mu": 0.01},
+            "domain": {"ngl": 4, "gmsh-file": path},
+            "boundary-conditions": {"uniform": {"velocity": [1, 0, 0],
+                                                "vorticity": [0, 0, 0]}},
+            "initial-conditions": {"velocity": [1, 0, 0]}}
+
+
+def gmsh_tg_config(path, lib, ngl, max_steps):
+    """The taylor-green (2D) or taylor-green3d case file's physics (rho 0.5,
+    mu 0.01; `lib` on every side, as initial condition and as the exact
+    solution) on the gmsh file `path`, with the step count given."""
+    cf = {"custom-func": {"name": lib,
+                          "attributes": ["velocity", "vorticity", "alpha"]}}
+    return {"name": lib.replace("_", "-"),
+            "material-properties": {"rho": 0.5, "mu": 0.01},
+            "domain": {"ngl": ngl, "gmsh-file": path},
+            "time-solver": {"max-steps": max_steps, "start-time": 0,
+                            "end-time": 10},
+            "boundary-conditions": cf, "initial-conditions": cf, "tests": cf}
 
 
 def phase_device(torch):
@@ -926,23 +1107,26 @@ def phase_decomp(torch, dev):
     return record
 
 
-def parity_cases():
+def parity_cases(tmp):
     """(label, config, Problem options, stepper tolerance) of the GPU-vs-CPU
-    parity cases. The stepper's tolerance is one at which every accepted
-    step's size factor is clipped at 10 (dt 1e-3, 1e-2, 1e-1): a factor the
-    error norm sets moves with the CG solves' last bits (at 1e-8 the 3D
-    Taylor-Green case's third dt differs by ~1e-5 between the kernel and
-    the plain version), and so would the end time. The direct case
-    (4^2 ngl=3 cavity-2d) runs no kernel: the GPU side is cuSOLVER's
-    factor and the global layout's torch ops; its solves agree to
-    round-off, so its error norms do too, but at 1e-8 the third dt still
-    follows their last bits (t_end moved 7e-9), hence 1e-4. GMRES(30) runs
-    at rtol 1e-10 with 1000 Arnoldi steps at most (its first free-slip
-    solve has b = 0 from a nonzero start, the lid being tangential, where
-    the reference's GMRES iterates to maxiter and CG returns x = 0), and
-    its depth is cut to 1 accepted step: restarted GMRES takes ~15x CG's
-    iterations on this cavity, and 3 steps took 75 s of GPU and CPU. The
-    accepted steps each case must take are its config's max-steps."""
+    parity cases (the gmsh cases' meshes written into `tmp`). The stepper's
+    tolerance is one at which every accepted step's size factor is clipped
+    at 10 (dt 1e-3, 1e-2, 1e-1): a factor the error norm sets moves with
+    the CG solves' last bits (at 1e-8 the 3D Taylor-Green case's third dt
+    differs by ~1e-5 between the kernel and the plain version), and so
+    would the end time. The direct case (4^2 ngl=3 cavity-2d) runs no
+    kernel: the GPU side is cuSOLVER's factor and the global layout's torch
+    ops; its solves agree to round-off, so its error norms do too, but at
+    1e-8 the third dt still follows their last bits (t_end moved 7e-9),
+    hence 1e-4. GMRES(30) runs at rtol 1e-10 with 1000 Arnoldi steps at
+    most (its first free-slip solve has b = 0 from a nonzero start, the lid
+    being tangential, where the reference's GMRES iterates to maxiter and
+    CG returns x = 0), and its depth is cut to 1 accepted step: restarted
+    GMRES takes ~15x CG's iterations on this cavity, and 3 steps took 75 s
+    of GPU and CPU. The two gmsh cases (distorted quads and hexes, engine
+    with the sumfact K and the gather DSS) run the Taylor-Green case files'
+    physics on meshes cut to 4^2 and 3^3 elements. The accepted steps each
+    case must take are its config's max-steps."""
     opts = dict(solver="cg", cg_rtol=1e-13, cg_maxiter=4000)
     cavity = cavity_config((3, 3, 3), 3, 1.0, 0.02, [1.0, 0, 0], 3, 1.0)
     cavity2 = cavity_config((4, 4), 3, 0.5, 0.01, [2, 0], 3, 2.0)
@@ -958,6 +1142,14 @@ def parity_cases():
         ("cavity-2d 4^2 ngl=3 direct", cavity2, dict(solver="direct"), 1e-4),
         ("cavity3d 3^3 ngl=3 gmres, 1 step", cavity_1,
          dict(solver="gmres", cg_rtol=1e-10, cg_maxiter=1000), 1e-4),
+        ("gmsh quads 4^2 distorted ngl=4 taylor-green, sumfact",
+         gmsh_tg_config(write_quad_msh(os.path.join(tmp, "quad.msh"), 4, 4,
+                                       MESH_DISTORT), "taylor_green", 4, 3),
+         opts, 1e-4),
+        ("gmsh hexes 3^3 distorted ngl=3 taylor-green3d, sumfact",
+         gmsh_tg_config(write_hex_msh(os.path.join(tmp, "hex.msh"), 3, 3, 3,
+                                      MESH_DISTORT), "taylor_green3d", 3, 3),
+         opts, 1e-4),
     ]
 
 
@@ -965,49 +1157,58 @@ def phase_parity(torch, dev):
     from pynama_tpu_torch.cases import Problem
     from pynama_tpu_torch.engine.local_engine import rhs_local
 
-    for label, cfg, opts, tol in parity_cases():
-        out = {}
-        for name, device in (("gpu", dev), ("cpu", torch.device("cpu"))):
-            p = Problem(cfg, device=device, dtype=torch.float64, **opts)
-            p.setUp()
-            rng = np.random.default_rng(0)
-            vort = rng.standard_normal((p.mesh.n_nodes, p.dim_w))
-            ops = p.engine_ops
-            if ops is None:         # the global layout (direct solve)
-                f, _ = p.rhs(p.start_time, vort, p.vel * 0.0)
-            else:
-                vel = torch.zeros((p.mesh.n_cells, p.mesh.nnode_el * p.dim),
-                                  dtype=torch.float64, device=device)
-                f, _ = rhs_local(ops, p.start_time, p.to_local(vort), vel)
-            t_end, steps = p.start_solver(atol=tol, rtol=tol, dt0=1e-3)
-            out[name] = dict(f=f.cpu().numpy(), vort=p.vort.cpu().numpy(),
-                             vel=p.vel.cpu().numpy(), t=t_end, steps=steps,
-                             solver=p.solver_method,
-                             pc=None if ops is None else ops.pc,
-                             krylov=None if ops is None else ops.krylov)
-        rel = {k: float(np.abs(out["gpu"][k] - out["cpu"][k]).max()
-                        / np.abs(out["cpu"][k]).max())
-               for k in ("f", "vort", "vel")}
-        emit("parity", case=label, rel_err=rel, limit=PARITY_LIMIT,
-             stepper_tol=tol, solver=out["gpu"]["solver"],
-             krylov=out["gpu"]["krylov"],
-             pc=out["gpu"]["pc"], steps_gpu=out["gpu"]["steps"],
-             steps_cpu=out["cpu"]["steps"], t_gpu=out["gpu"]["t"],
-             t_cpu=out["cpu"]["t"])
-        direct = opts["solver"] == "direct"
-        want = dict(solver=opts["solver"],
-                    pc=None if direct else opts.get("pc", "jacobi"),
-                    krylov=None if direct else opts["solver"])
-        for k, v in want.items():
-            check(out["gpu"][k] == out["cpu"][k] == v,
-                  f"parity {label}: {k} {out['gpu'][k]}, want {v}")
-        want_steps = cfg["time-solver"]["max-steps"]
-        check(out["gpu"]["steps"] == out["cpu"]["steps"] == want_steps,
-              f"parity {label}: accepted steps gpu {out['gpu']['steps']} "
-              f"cpu {out['cpu']['steps']} (want {want_steps})")
-        check(all(v <= PARITY_LIMIT for v in rel.values()),
-              f"parity {label}: GPU vs CPU relative error {rel} > "
-              f"{PARITY_LIMIT}")
+    tmp = tempfile.mkdtemp(prefix="parity-")
+    try:
+        for label, cfg, opts, tol in parity_cases(tmp):
+            out = {}
+            for name, device in (("gpu", dev), ("cpu", torch.device("cpu"))):
+                p = Problem(cfg, device=device, dtype=torch.float64, **opts)
+                p.setUp()
+                rng = np.random.default_rng(0)
+                vort = rng.standard_normal((p.mesh.n_nodes, p.dim_w))
+                ops = p.engine_ops
+                if ops is None:         # the global layout (direct solve)
+                    f, _ = p.rhs(p.start_time, vort, p.vel * 0.0)
+                else:
+                    vel = torch.zeros(
+                        (p.mesh.n_cells, p.mesh.nnode_el * p.dim),
+                        dtype=torch.float64, device=device)
+                    f, _ = rhs_local(ops, p.start_time, p.to_local(vort), vel)
+                t_end, steps = p.start_solver(atol=tol, rtol=tol, dt0=1e-3)
+                out[name] = dict(f=f.cpu().numpy(), vort=p.vort.cpu().numpy(),
+                                 vel=p.vel.cpu().numpy(), t=t_end, steps=steps,
+                                 solver=p.solver_method,
+                                 pc=None if ops is None else ops.pc,
+                                 krylov=None if ops is None else ops.krylov,
+                                 sumfact=None if ops is None
+                                 else ops.sumfact is not None)
+            rel = {k: float(np.abs(out["gpu"][k] - out["cpu"][k]).max()
+                            / np.abs(out["cpu"][k]).max())
+                   for k in ("f", "vort", "vel")}
+            emit("parity", case=label, rel_err=rel, limit=PARITY_LIMIT,
+                 stepper_tol=tol, solver=out["gpu"]["solver"],
+                 krylov=out["gpu"]["krylov"],
+                 pc=out["gpu"]["pc"], steps_gpu=out["gpu"]["steps"],
+                 steps_cpu=out["cpu"]["steps"], t_gpu=out["gpu"]["t"],
+                 t_cpu=out["cpu"]["t"])
+            direct = opts["solver"] == "direct"
+            want = dict(solver=opts["solver"],
+                        pc=None if direct else opts.get("pc", "jacobi"),
+                        krylov=None if direct else opts["solver"])
+            if "gmsh-file" in cfg["domain"]:
+                want["sumfact"] = True
+            for k, v in want.items():
+                check(out["gpu"][k] == out["cpu"][k] == v,
+                      f"parity {label}: {k} {out['gpu'][k]}, want {v}")
+            want_steps = cfg["time-solver"]["max-steps"]
+            check(out["gpu"]["steps"] == out["cpu"]["steps"] == want_steps,
+                  f"parity {label}: accepted steps gpu {out['gpu']['steps']} "
+                  f"cpu {out['cpu']['steps']} (want {want_steps})")
+            check(all(v <= PARITY_LIMIT for v in rel.values()),
+                  f"parity {label}: GPU vs CPU relative error {rel} > "
+                  f"{PARITY_LIMIT}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def phase_main(torch, dev):
@@ -1970,6 +2171,343 @@ def phase_cli(torch, dev):
     return {"cli": runs["a"]["launches"], "cli_kle": k1_kle}
 
 
+def _sumfact_cost(sf, E):
+    """(operations, bytes) of one apply_sumfact_k: the four flat matmuls and
+    the three dim x dim geometry contractions; the element vector read
+    once and written once, every SumFactK tensor read once."""
+    dim, nn = sf.dim, sf.ngl ** sf.dim
+    nq = sf.nqf + sf.nqr
+    flops = 2 * (2 * E * dim * nn * dim * nq) + 2 * dim * dim * E * dim * (
+        sf.nqf + 2 * sf.nqr)
+    tensors = (sf.Gt, sf.Jrt, sf.wr, sf.Df_flat, sf.Dr_flat, sf.v2cm,
+               sf.cm2v)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors) \
+        + 2 * E * dim * nn * 4
+    return flops, nbytes
+
+
+def _index_bytes(lay):
+    """Bytes of the gather DSS's two index tables."""
+    return (lay.incidence.numel() * lay.incidence.element_size()
+            + lay.cell_nodes.numel() * lay.cell_nodes.element_size())
+
+
+def _f32_bound(flops, nbytes):
+    return _bound(flops, PEAK_FLOPS["float32"], nbytes)
+
+
+def _apply_row(torch, fn, bound, cell_nodes):
+    """Device µs per call (profiler, every kernel fn launches), the kernels
+    and launches per call, the CUDA-event wall ms per call and the bound
+    (bound_ms, bound_by); and fn's output (three components per node) with
+    its duplicate-slot spread."""
+    y = fn()
+    torch.cuda.synchronize()
+    per, counts = _profile(torch, fn)
+    return y, dict(device_us=sum(per.values()), kernels=len(per),
+                   launches_per_call=sum(counts.values()),
+                   wall_ms=_median_ms(torch, fn), bound_us=bound[0] * 1e3,
+                   bound_by=bound[1],
+                   dup_spread=_dup_spread(torch, y, cell_nodes, 3),
+                   top_kernels=sorted(per.items(),
+                                      key=lambda kv: -kv[1])[:6])
+
+
+def _unstructured_hex_apply(torch, dev, path):
+    """(a): bench.py's hex config through Problem with sumfact on and off;
+    each route's apply_K, and the gather DSS alone."""
+    from pynama_tpu_torch.cases import Problem
+    from pynama_tpu_torch.engine.local_engine import apply_K
+    from pynama_tpu_torch.ops import local as L
+    from pynama_tpu_torch.ops.sumfact import apply_sumfact_k
+
+    rows, ys = {}, {}
+    for name, sf in (("sumfact", True), ("dense", False)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        p = Problem(hex_uniform_config(path), device=dev,
+                    dtype=torch.float32, solver="cg", cg_rtol=1e-6,
+                    cg_maxiter=500, sumfact=sf)
+        p.setUp()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        ops, mesh = p.engine_ops, p.mesh
+        check((ops.sumfact is not None) == sf and not ops.lay_v.structured,
+              f"unstructured (a) {name}: sumfact {ops.sumfact is not None}")
+        check(sf == (ops.KT.numel() == 0),
+              f"unstructured (a) {name}: KT has {ops.KT.numel()} elements")
+        v = p.to_local(np.random.default_rng(1).standard_normal(
+            (mesh.n_nodes, 3)))
+        # apply_K = the gather DSS of the element product: its bytes are
+        # v, the product's operands (KT, or the SumFactK tensors), y and
+        # the DSS's index tables
+        E, nnc = mesh.n_cells, mesh.nnode_el * 3
+        if sf:
+            flops, nbytes = _sumfact_cost(ops.sumfact, E)
+        else:
+            flops = 2 * E * nnc * nnc
+            nbytes = (ops.KT.numel() + 2 * E * nnc) * 4
+        ys[name], row = _apply_row(
+            torch, lambda: apply_K(ops, v),
+            _f32_bound(flops, nbytes + _index_bytes(ops.lay_v)),
+            mesh.cell_nodes)
+        row.update(setup_s=setup_s, setup_phases_s=p.setup_phases,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+                   kt_numel=ops.KT.numel())
+        if sf:
+            z = apply_sumfact_k(ops.sumfact, v)
+            _, dss = _apply_row(
+                torch, lambda: L.dss(ops.lay_v, z),
+                _f32_bound(mesh.n_nodes * ops.lay_v.incidence.shape[1] * 3,
+                           2 * E * nnc * 4 + _index_bytes(ops.lay_v)),
+                mesh.cell_nodes)
+            row["gather_dss"] = dss
+            row["gather_dss_share"] = dss["device_us"] / row["device_us"]
+        rows[name] = row
+        del p, ops
+    rel = _rel(ys["sumfact"].cpu().numpy(), ys["dense"].cpu().numpy())
+    return rows, rel, mesh
+
+
+def _unstructured_transient(torch, dev, cfg, ref_err, **opts):
+    """setUp and UNSTRUCT_STEPS accepted steps of cfg in f32, with K1's and
+    its DSS pass's launches counted from 0; the fields after each step."""
+    from pynama_tpu_torch.cases import Problem
+    from pynama_tpu_torch.cases.problem import host_array
+    from pynama_tpu_torch.ops.fused import dss_pass, fused_apply
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fused_apply.launches = dss_pass.launches = 0
+    p = Problem(cfg, device=dev, dtype=torch.float32, **opts)
+    t0 = time.perf_counter()
+    p.setUp()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    p.cg_log = []
+    snaps = []
+
+    def post(step, t, dt, vort, vel):
+        snaps.append((step, t, np.array(host_array(vort)),
+                      np.array(host_array(vel))))
+
+    t0 = time.perf_counter()
+    t_end, steps = p.start_solver(post_step=post, dt0=1e-3, atol=1e-4,
+                                  rtol=1e-4)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    w_exact = p.exact_fields(t_end)[1].double()
+    err = float((p.vort.double() - w_exact).abs().max()
+                / w_exact.abs().max())
+    finite = bool(torch.isfinite(p.vort).all()) and bool(
+        torch.isfinite(p.vel).all())
+    row = dict(n_nodes=p.mesh.n_nodes, velocity_dofs=p.mesh.n_nodes * p.dim,
+               solver=p.solver_method, setup_s=setup_s,
+               setup_phases_s=_direct_setup_s(p) if p.engine_ops is None
+               else p.setup_phases, accepted_steps=steps, t_end=t_end,
+               run_s=run_s, s_per_step=run_s / max(steps, 1),
+               rhs_evals=len(p.cg_log) if p.engine_ops is not None else None,
+               cg_iters=[int(it) for it, _ in p.cg_log],
+               k1_launches=fused_apply.launches,
+               dss_pass_launches=dss_pass.launches,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+               vort_rel_max_err=err, jax_ref_err=ref_err,
+               err_limit=2 * ref_err, finite=finite)
+    return p, row, snaps
+
+
+def phase_unstructured(torch, dev, flagship, t_flagship):
+    """gmsh meshes through the port's entry points on the card: (a)
+    bench.py's hex K apply, sumfact against dense; (b) the 3D Taylor-Green
+    transient on those hexes; (c) 50^2 distorted quads under "auto" (the
+    direct solve); (d) sumfact=True on the flagship box mesh against K1;
+    (f) a gmsh case file through run_case. Returns K1's launches in (a)-(c)
+    and (f) and in (d)'s rhs, and the DSS pass's in (d)'s rhs."""
+    from pynama_tpu_torch import run_case
+    from pynama_tpu_torch.cases import Problem
+    from pynama_tpu_torch.cases.problem import host_array
+    from pynama_tpu_torch.engine.local_engine import apply_K, rhs_local
+    from pynama_tpu_torch.ops.fused import dss_pass, fused_apply
+    from pynama_tpu_torch.ops.sumfact import apply_sumfact_k
+
+    t_phase = time.perf_counter()
+    cwd, tmp = os.getcwd(), tempfile.mkdtemp(prefix="unstructured-")
+    k1_unstructured = 0
+    try:
+        # (a) the hex K apply, sumfact and dense
+        hex_path = write_hex_msh(os.path.join(tmp, "hex.msh"), HEX_N, HEX_N,
+                                 HEX_N, MESH_DISTORT)
+        fused_apply.launches = 0
+        rows, rel, mesh = _unstructured_hex_apply(torch, dev, hex_path)
+        k1_unstructured += fused_apply.launches
+        emit("unstructured_apply", config=f"bench.py hex: {HEX_N}^3 hexes "
+             f"distorted {MESH_DISTORT}, ngl=4, f32", n_nodes=mesh.n_nodes,
+             velocity_dofs=mesh.n_nodes * 3, rel_diff=rel, limit=F32_LIMIT,
+             k1_launches=fused_apply.launches, **rows)
+        check(rel <= F32_LIMIT, f"unstructured (a): sumfact vs dense apply_K "
+              f"relative {rel:.3e} > {F32_LIMIT}")
+        for name, row in rows.items():
+            check(row["dup_spread"] == 0.0, f"unstructured (a) {name}: "
+                  f"duplicate slots differ by {row['dup_spread']}")
+        check(rows["sumfact"]["gather_dss"]["dup_spread"] == 0.0,
+              "unstructured (a): the gather DSS left duplicates unequal")
+        check(fused_apply.launches == 0, "unstructured (a): K1 launched")
+
+        # (b) the 3D Taylor-Green transient on the hexes
+        p, row, _ = _unstructured_transient(
+            torch, dev, gmsh_tg_config(hex_path, "taylor_green3d", 4,
+                                       UNSTRUCT_STEPS), HEX_TG3D_REF_ERR,
+            solver="cg", cg_rtol=1e-6, cg_maxiter=1000)
+        k1_unstructured += row["k1_launches"]
+        ops = p.engine_ops
+        row.update(sumfact=ops.sumfact is not None, func_sides=len(
+            ops.func_sides), jax_ref_t_end=HEX_TG3D_REF_T)
+        del p, ops
+        emit("unstructured_hex_tg3d", config=f"taylor_green3d on the "
+             f"{HEX_N}^3 hexes, ngl=4 f32 cg_rtol=1e-6", **row)
+        check(row["accepted_steps"] == UNSTRUCT_STEPS and row["finite"],
+              f"unstructured (b): {row['accepted_steps']} steps, finite "
+              f"{row['finite']}")
+        check(row["solver"] == "cg" and row["sumfact"],
+              "unstructured (b): want the engine's CG with sumfact K")
+        check(row["k1_launches"] == 0 and row["dss_pass_launches"] == 0,
+              "unstructured (b): K1 or its DSS pass launched")
+        check(row["vort_rel_max_err"] <= row["err_limit"],
+              f"unstructured (b): vorticity error "
+              f"{row['vort_rel_max_err']:.3e} > {row['err_limit']:.3e}")
+
+        # (c) 50^2 distorted quads, "auto" -> the direct solve
+        quad_path = write_quad_msh(os.path.join(tmp, "quad.msh"), QUAD_N,
+                                   QUAD_N, MESH_DISTORT)
+        qcfg = gmsh_tg_config(quad_path, "taylor_green", 3, UNSTRUCT_STEPS)
+        p, row, snaps = _unstructured_transient(torch, dev, qcfg,
+                                                QUAD_TG_REF_ERR)
+        k1_unstructured += row["k1_launches"]
+        row.update(engine=p.engine_ops is not None,
+                   jax_ref_t_end=QUAD_TG_REF_T)
+        del p
+        emit("unstructured_quad_direct", config=f"taylor_green on "
+             f"{QUAD_N}^2 quads distorted {MESH_DISTORT}, ngl=3 f32, no "
+             "solver option", **row)
+        check(row["solver"] == "direct" and not row["engine"],
+              f"unstructured (c): solver {row['solver']}, want direct and "
+              "no engine")
+        check(row["accepted_steps"] == UNSTRUCT_STEPS and row["finite"],
+              f"unstructured (c): {row['accepted_steps']} steps")
+        check(row["k1_launches"] == 0, "unstructured (c): K1 launched")
+        check(row["vort_rel_max_err"] <= row["err_limit"],
+              f"unstructured (c): vorticity error "
+              f"{row['vort_rel_max_err']:.3e} > {row['err_limit']:.3e}")
+
+        # (f) the quads' case file through run_case, 2 steps, against (c)
+        step, t_ref, vort_ref, vel_ref = snaps[UNSTRUCT_CLI_STEPS - 1]
+        case = json.loads(json.dumps(qcfg))
+        case["time-solver"]["max-steps"] = UNSTRUCT_CLI_STEPS
+        case["save-dir"] = "gmsh-out"
+        case_path = os.path.join(tmp, "gmsh-case.yaml")
+        with open(case_path, "w") as f:
+            json.dump(case, f)
+        hdf5 = _importable("h5py")
+        os.chdir(tmp)
+        fused_apply.launches = 0
+        t0 = time.perf_counter()
+        with _cli_probe(torch, run_case):
+            pc, t_cli, steps_cli = _cli_production(
+                run_case, ["-case", case_path, "-log", "WARNING", "-device",
+                           "cuda", "-dtype", "float32", "-dt0", "1e-3"],
+                hdf5)
+        torch.cuda.synchronize()
+        k1_unstructured += fused_apply.launches
+        row_f = dict(io_route="hdf5" if hdf5 else "binary",
+                     solver=pc.solver_method, seconds=time.perf_counter()
+                     - t0, accepted_steps=steps_cli, t_end=t_cli,
+                     t_problem=t_ref, k1_launches=fused_apply.launches,
+                     vort_rel_diff=_rel(host_array(pc.vort), vort_ref),
+                     vel_rel_diff=_rel(host_array(pc.vel), vel_ref),
+                     limit=CLI_FIELD_LIMIT)
+        del pc
+        emit("unstructured_cli", config="the (c) case file with max-steps "
+             f"{UNSTRUCT_CLI_STEPS} through run_case", **row_f)
+        check(steps_cli == step == UNSTRUCT_CLI_STEPS and t_cli == t_ref,
+              f"unstructured (f): {steps_cli} steps to t={t_cli}, Problem "
+              f"{step} to t={t_ref}")
+        check(max(row_f["vort_rel_diff"], row_f["vel_rel_diff"])
+              <= CLI_FIELD_LIMIT, "unstructured (f): run_case's fields "
+              f"differ from Problem's by {row_f['vort_rel_diff']:.3e} / "
+              f"{row_f['vel_rel_diff']:.3e}")
+        check(fused_apply.launches == 0, "unstructured (f): K1 launched")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (d) sumfact=True on the flagship box mesh, against K1's apply_K
+    cfg = cavity_config((24, 24, 24), 4, 0.5, 0.01, [2, 0, 0], 2, 1.0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ps = Problem(cfg, device=dev, dtype=torch.float32, solver="cg",
+                 cg_rtol=1e-6, cg_maxiter=1000, sumfact=True)
+    ps.setUp()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    ops_s, ops_k = ps.engine_ops, flagship.engine_ops
+    check(ops_s.sumfact is not None and ops_s.KT.numel() == 0
+          and ops_s.fused and ops_s.lay_v.structured,
+          "unstructured (d): sumfact=True did not reach the box engine")
+    E = ps.mesh.n_cells
+    v = ps.to_local(np.random.default_rng(2).standard_normal(
+        (ps.mesh.n_nodes, 3)))
+    z = apply_sumfact_k(ops_s.sumfact, v)
+    bound = _f32_bound(*_sumfact_cost(ops_s.sumfact, E))
+    cn = ps.mesh.cell_nodes
+    y_s, row_s = _apply_row(torch, lambda: apply_K(ops_s, v), bound, cn)
+    _, row_p = _apply_row(torch, lambda: apply_sumfact_k(ops_s.sumfact, v),
+                          bound, cn)
+    _, row_d = _apply_row(torch, lambda: dss_pass(
+        z, ops_s.nelem, ops_s.ngl, 3)[0], _f32_bound(0, 2 * z.nbytes), cn)
+    y_k, row_k = _apply_row(torch, lambda: apply_K(ops_k, v),
+                            _gemm_bound(E, 192, 192, "float32"), cn)
+    rel = _rel(y_s.cpu().numpy(), y_k.cpu().numpy())
+    # one rhs_local of the flagship's state after phase_main's steps
+    vort_l, vel_l = ps.to_local(flagship.vort), ps.to_local(flagship.vel)
+    stats = []
+    torch.cuda.synchronize()
+    fused_apply.launches = dss_pass.launches = 0
+    t0 = time.perf_counter()
+    rhs_local(ops_s, t_flagship, vort_l, vel_l, stats)
+    torch.cuda.synchronize()
+    rhs_s = time.perf_counter() - t0
+    k1_box, dss_box = fused_apply.launches, dss_pass.launches
+    applies = sum(n for _, n in stats)
+    # K1: Rw per stage, the curl between the stages, srt, div_srt, curl;
+    # the DSS pass: apply_K(vc) and the A0 residual per stage, and every
+    # application of the CG loops
+    row = dict(config="cavity3d 24^3 ngl=4 f32 cg_rtol=1e-6, sumfact=True",
+               setup_s=setup_s, setup_phases_s=ps.setup_phases,
+               rel_diff=rel, limit=F32_LIMIT, sumfact_apply_K=row_s,
+               sumfact_product=row_p, dss_pass=row_d, k1_apply_K=row_k,
+               rhs_s=rhs_s, cg_iters_fs_main=[int(it) for it, _ in stats],
+               cg_loop_applies=applies, k1_launches=k1_box,
+               k1_expected=6, dss_pass_launches=dss_box,
+               dss_pass_expected=4 + applies,
+               phase_seconds=time.perf_counter() - t_phase)
+    del ps, ops_s, z
+    torch.cuda.empty_cache()
+    emit("unstructured_box_sumfact", **row)
+    check(rel <= F32_LIMIT, f"unstructured (d): sumfact + DSS pass vs K1 "
+          f"relative {rel:.3e} > {F32_LIMIT}")
+    check(row_s["dup_spread"] == 0.0, "unstructured (d): duplicates differ")
+    check(k1_box == 6 and dss_box == 4 + applies and applies > 0,
+          f"unstructured (d): K1 {k1_box} launches (want 6), DSS pass "
+          f"{dss_box} (want {4 + applies})")
+    return {"unstructured": k1_unstructured, "box_sumfact": k1_box}, \
+        {"box_sumfact": dss_box}
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1997,9 +2535,12 @@ def main() -> int:
                 "global_ops": phase_global_ops(torch, dev),
                 "gmres": phase_gmres(torch, dev)}
     k1_paths.update(phase_cli(torch, dev))
+    k1_more, dss_paths = phase_unstructured(torch, dev, problem, t_main)
+    k1_paths.update(k1_more)
 
     record["launches"] = launches
     record["launches_by_path"] = k1_paths
+    record["dss_pass_launches_by_path"] = dss_paths
     kernels = [("fused_apply", "fused_apply.cu", "pynama_tpu/ops/fused.py:180",
                 record),
                ("fused3x_apply", "fused3x.cu", "exp/mm3x.py:41",
@@ -2017,7 +2558,8 @@ def main() -> int:
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "device_us": r["device_us"], "plain_device_us": r["plain_device_us"],
         **{k: r[k] for k in ("gemm3x_device_us", "gemm3x_bound_us",
-                             "launches_by_path") if k in r}}
+                             "launches_by_path", "dss_pass_launches_by_path")
+           if k in r}}
         for name, src, replaces, r in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

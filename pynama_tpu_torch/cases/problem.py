@@ -27,8 +27,15 @@ library. The preconditioner is the `pc` option ("jacobi" by default, or
 `fast_io`, the async binary ones) of a production run; fields leave the
 device as numpy arrays on their way to `io/`. The CLI is `run_case.py`.
 
-Left out until their ROADMAP items: gmsh meshes (item 12), IBM bodies
-(item 13) and sharded runs (item 14).
+The mesh is a box (`box-mesh`) or a gmsh file (`gmsh-file`: 2D quads or
+3D hexes, `mesh.mesh_from_gmsh`). On a gmsh mesh every element has its own
+matrices (built in the runtime dtype), the engine runs them through the
+gather DSS and sum-factorizes K by default (`sumfact=`, which a box mesh
+takes too when asked), and the global layout takes the per-element
+matrices as they are.
+
+Left out until their ROADMAP items: IBM bodies (item 13) and sharded runs
+(item 14).
 """
 from __future__ import annotations
 
@@ -48,7 +55,7 @@ from pynama_tpu_torch.engine.local_engine import (apply_vorticity_bc,
                                                   rk_error_norm,
                                                   solve_kle_local)
 from pynama_tpu_torch.functions import get_function_lib
-from pynama_tpu_torch.mesh import BoxMesh
+from pynama_tpu_torch.mesh import BoxMesh, mesh_from_gmsh
 from pynama_tpu_torch.ops import local as L
 from pynama_tpu_torch.ops.apply import (ElementOp, apply_op, fanin_sum_np,
                                         make_element_op)
@@ -143,13 +150,15 @@ class Problem:
         dom = dict(self.config["domain"])
         ngl = int(self.opts.get("ngl", dom["ngl"]))
         if "gmsh-file" in dom and "box-mesh" not in dom:
-            raise NotImplementedError("gmsh meshes are not ported yet "
-                                      "(ROADMAP Queue A item 12)")
-        box = dict(dom.get("box-mesh", dom))
-        nelem = self.opts.get("nelem", box["nelem"])
-        lower = self.opts.get("lower", box.get("lower", [0] * len(nelem)))
-        upper = self.opts.get("upper", box.get("upper", [1] * len(nelem)))
-        self.mesh = BoxMesh.create(ngl, nelem, lower, upper)
+            self.mesh = mesh_from_gmsh(dom["gmsh-file"], ngl)
+        else:
+            box = dict(dom.get("box-mesh", dom))
+            nelem = self.opts.get("nelem", box["nelem"])
+            lower = self.opts.get("lower",
+                                  box.get("lower", [0] * len(nelem)))
+            upper = self.opts.get("upper",
+                                  box.get("upper", [1] * len(nelem)))
+            self.mesh = BoxMesh.create(ngl, nelem, lower, upper)
         self.dim = self.mesh.dim
         self.dim_w = self.mesh.dim_w
         self.dim_s = self.mesh.dim_s
@@ -189,16 +198,22 @@ class Problem:
                                dtype=self.dtype)
 
     def _build_operators(self):
-        """Element matrices of the shared geometry (a box mesh is uniform:
-        one exact float64 build serves every element), the global nodal
-        operators and the lumped weights."""
+        """Element matrices (a box mesh is uniform: one exact float64 build
+        of the shared geometry serves every element; a gmsh mesh gets one
+        per element, whose quadratic-form GEMMs run in the runtime dtype,
+        as in the JAX package), the global nodal operators and the lumped
+        weights."""
         mesh = self.mesh
         idx = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int64),
                                         device=self.device)
         self._index_pair = (idx(mesh.cell_nodes), idx(mesh.incidence))
-        corners = mesh.cell_corners[0]
-        self._em = compute_kle_matrices(self.basis, corners)
-        eo = compute_operators(self.basis, corners)
+        if mesh.is_uniform:
+            corners, gdt = mesh.cell_corners[0], None
+        else:
+            corners = mesh.cell_corners
+            gdt = torch.empty((), dtype=self.dtype).numpy().dtype
+        self._em = compute_kle_matrices(self.basis, corners, gemm_dtype=gdt)
+        eo = compute_operators(self.basis, corners, gemm_dtype=gdt)
         self._eo = eo
         wtile = np.broadcast_to(np.asarray(eo.weight, dtype=np.float64),
                                 (mesh.n_cells, mesh.nnode_el))
@@ -274,7 +289,8 @@ class Problem:
             # and one-shot solves
             pc=self.opts.get("pc", "jacobi"),
             krylov="gmres" if self.solver_method == "gmres" else "cg",
-            fused=self.opts.get("fused", True))
+            fused=self.opts.get("fused", True),
+            sumfact=self.opts.get("sumfact"), basis=self.basis)
 
     # ------------------------------------------------- local layout shuttles
     def to_local(self, x) -> torch.Tensor:

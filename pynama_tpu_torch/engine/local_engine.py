@@ -1,9 +1,9 @@
 """Execution engine: the whole KLE/RHS pipeline in element-local layout.
 
-Port of pynama_tpu/engine/local_engine.py for box meshes. All state lives
-in the local vector layout of `ops/local.py` — (E, nnode_el*ncomp) — and
-`EngineOps`, a frozen dataclass of tensors, carries everything the step
-functions need.
+Port of pynama_tpu/engine/local_engine.py, on box meshes and on
+unstructured ones (gmsh quads and hexes). All state lives in the local
+vector layout of `ops/local.py` — (E, nnode_el*ncomp) — and `EngineOps`, a
+frozen dataclass of tensors, carries everything the step functions need.
 
 Pipeline per RHS evaluation (reference evalRHS):
 
@@ -15,12 +15,21 @@ Pipeline per RHS evaluation (reference evalRHS):
     operators : curl/SrT/DivSrT as DSS(x @ matT) + winv scaling
     v (x) v   : component extraction/packing via column gathers
 
-Every operator application is `_apply_mat`, y = DSS(t @ matT). With
-`fused=True` (the default) it runs through `ops/fused.py::fused_apply`: the
-hand-written CUDA kernel on a GPU, its plain PyTorch version on the CPU.
-`fused=False` (the CLI's `-fused off`, a user's choice, never taken by
-itself) runs the plain `ops/local.py` route, `dss(emm(t, matT))`, on any
-device.
+Every operator application is `_apply_mat`, y = DSS(t @ matT). On a box
+mesh with `fused=True` (the default) it runs through
+`ops/fused.py::fused_apply`: the hand-written CUDA kernel on a GPU, its
+plain PyTorch version on the CPU. `fused=False` (the CLI's `-fused off`, a
+user's choice, never taken by itself) runs the plain `ops/local.py` route,
+`dss(emm(t, matT))`, on any device. Unstructured meshes always take that
+route, with per-element matrices (a batched einsum) and the gather DSS:
+the fused kernel is a box-mesh kernel, and `fused=True` there only logs so.
+
+K can be sum-factorized (`ops/sumfact.py`, `sumfact=`; on by default on
+unstructured meshes, where the dense per-element K would be the largest
+array the engine reads): apply_K is then the sumfact product followed by
+the DSS — K1's DSS pass alone (`dss_pass`) on a box mesh with
+`fused=True`, else the plain `ops/local.py` DSS — and the dense K never
+goes to the device.
 
 Correctness relies on every field staying *consistent* (duplicated interface
 slots equal): DSS assembles, masks and pointwise scalings are per-node, CG
@@ -33,9 +42,8 @@ free-slip stage. Constant sides are merged in declaration order into the
 constant buffers; analytic-function sides are scattered on top of them,
 each in its turn, so a function side wins a shared corner.
 
-Left out until their ROADMAP items: sum factorization (item 12) and
-sharding (item 14). The Schwarz preconditioner is an option
-the port leaves out.
+Left out until its ROADMAP item: sharding (item 14). The Schwarz
+preconditioner is an option the port leaves out.
 """
 from __future__ import annotations
 
@@ -48,7 +56,8 @@ import torch
 
 from pynama_tpu_torch.functions import get_function_lib
 from pynama_tpu_torch.ops import local as L
-from pynama_tpu_torch.ops.fused import fused_apply
+from pynama_tpu_torch.ops import sumfact as S
+from pynama_tpu_torch.ops.fused import dss_pass, fused_apply
 from pynama_tpu_torch.solver.cg import pcg
 from pynama_tpu_torch.solver.fdm import FDMOps, build_fdm, fdm_apply
 from pynama_tpu_torch.solver.gmres import gmres
@@ -73,7 +82,9 @@ class FuncSide:
 @dataclasses.dataclass(frozen=True)
 class EngineOps:
     """Everything the step functions need."""
-    # element matrices, transposed (x_local @ matT)
+    # element matrices, transposed (x_local @ matT); on unstructured meshes
+    # one per element, (E, nnc_in, nnc_out); KT is empty, (0,), when
+    # `sumfact` replaces it
     KT: torch.Tensor              # (nncv, nncv)
     RwT: torch.Tensor             # (nncw, nncv)
     curlT: torch.Tensor           # (nncv, nncw)
@@ -126,16 +137,19 @@ class EngineOps:
     #: Krylov method of the masked solves: "cg" or "gmres"
     krylov: str = "cg"
     #: operator applications through fused_apply (True) or the plain
-    #: ops/local.py route (False, the user's `-fused off`)
+    #: ops/local.py route (False, the user's `-fused off`); box meshes only
     fused: bool = True
+    #: sum-factorized K (ops/sumfact.py) in place of KT; None -> dense KT
+    sumfact: Optional[S.SumFactK] = None
 
     @property
     def nn(self):
         return self.ngl ** self.dim
 
 
-#: the array fields of EngineOps, by dotted path, as `ops_from_numpy` takes
-#: them (layout perms as one (dim, nnc) integer array)
+#: the array fields of EngineOps on every mesh, by dotted path, as
+#: `ops_from_numpy` takes them (layout perms as one (dim, nnc) integer
+#: array, (0, nnc) on unstructured meshes)
 ARRAY_FIELDS = (
     "KT", "RwT", "curlT", "srtT", "divT",
     "lay_v.inv_mult", "lay_v.perms", "lay_w.inv_mult", "lay_w.perms",
@@ -144,6 +158,12 @@ ARRAY_FIELDS = (
     "mask_vel", "mask_vort", "mask_tang", "const_vel", "const_vort",
     "const_tang", "P_v2cm", "P_cm2s", "rho", "mu", "nu",
 )
+#: more array fields on unstructured meshes (structured=False): each
+#: layout's fan-in table and node table
+UNSTRUCTURED_FIELDS = tuple(f"lay_{fam}.{k}" for fam in "vws"
+                            for k in ("incidence", "cell_nodes"))
+#: the SumFactK fields, present when sumfact replaces the dense KT
+SUMFACT_FIELDS = tuple(f"sumfact.{k}" for k in S.FIELDS)
 
 
 # ---------------------------------------------------------------------------
@@ -175,17 +195,26 @@ def _vtensv_pairs(dim: int):
 
 def _engine_arrays(mesh, bc, em_K, em_Rw, op_curl, op_srt, op_div,
                    op_weight, rho, mu) -> dict:
-    """The numpy arrays of an EngineOps (keys: ARRAY_FIELDS), float64."""
+    """The numpy arrays of an EngineOps (keys: ARRAY_FIELDS, and
+    UNSTRUCTURED_FIELDS on an unstructured mesh): float64, but the element
+    matrices keep their own dtype (per-element ones are built in the
+    runtime dtype) and are transposed views."""
     dim, dim_w, dim_s = mesh.dim, mesh.dim_w, mesh.dim_s
     nn = mesh.nnode_el
     E = mesh.n_cells
+    box = getattr(mesh, "is_box", False)
     cell_nodes = np.asarray(mesh.cell_nodes)
     counts = np.bincount(cell_nodes.ravel(), minlength=mesh.n_nodes)
     inv = 1.0 / counts[cell_nodes]
     out = {}
     for fam, c in (("v", dim), ("w", dim_w), ("s", dim_s)):
         out[f"lay_{fam}.inv_mult"] = np.repeat(inv, c, axis=1)
-        out[f"lay_{fam}.perms"] = np.stack(L.perm_arrays(mesh.ngl, dim, c))
+        out[f"lay_{fam}.perms"] = (
+            np.stack(L.perm_arrays(mesh.ngl, dim, c)) if box
+            else np.zeros((0, nn * c), dtype=np.int64))
+        if not box:
+            out[f"lay_{fam}.incidence"] = np.asarray(mesh.incidence)
+            out[f"lay_{fam}.cell_nodes"] = cell_nodes
 
     # lumped weights: assemble (DSS of tiled element weights), then 1/w per
     # node, expanded per family
@@ -198,7 +227,8 @@ def _engine_arrays(mesh, bc, em_K, em_Rw, op_curl, op_srt, op_div,
     out["free_main"] = L.to_local(mesh, bc.free_main.astype(np.float64))
     out["free_fs"] = L.to_local(mesh, bc.free_fs.astype(np.float64))
     K_np = np.asarray(em_K)
-    de = np.tile(np.diagonal(K_np)[None, :], (E, 1))
+    de = np.diagonal(K_np, axis1=-2, axis2=-1) if K_np.ndim == 3 \
+        else np.tile(np.diagonal(K_np)[None, :], (E, 1))
     out["diag"] = L.dss_np(mesh, de, dim)
 
     # BC masks + constant values (dense, merged in side order)
@@ -226,7 +256,7 @@ def _engine_arrays(mesh, bc, em_K, em_Rw, op_curl, op_srt, op_div,
                    ("const_vort", cvort), ("const_tang", ctang)):
         out[key] = L.to_local(mesh, a)
 
-    tr = lambda a: np.ascontiguousarray(np.asarray(a).T)
+    tr = lambda a: np.swapaxes(np.asarray(a), -1, -2)
     out.update(KT=tr(K_np), RwT=tr(em_Rw), curlT=tr(op_curl),
                srtT=tr(op_srt), divT=tr(op_div),
                P_v2cm=_comp_perm_idx(nn, dim),
@@ -259,16 +289,18 @@ def _engine_func_sides(mesh, bc) -> list:
 def ops_from_numpy(arrays: dict, *, ngl, nelem, dim, dim_w, dim_s, is_ns,
                    cg_rtol, cg_atol, cg_maxiter, device, dtype,
                    func_sides=(), pc="jacobi", fdm_main=None,
-                   fdm_fs=None, krylov="cg", fused=True) -> EngineOps:
-    """EngineOps from numpy arrays keyed by ARRAY_FIELDS (the fields of the
-    JAX package's EngineOps carry over one to one). Float arrays are cast to
-    `dtype`, index arrays to int64, scalars to Python floats. `func_sides`
-    holds objects with the FuncSide fields whose arrays numpy can read
-    (either package's FuncSide); `fdm_main`/`fdm_fs` are the port's FDMOps
-    on `device`."""
+                   fdm_fs=None, krylov="cg", fused=True,
+                   structured=True) -> EngineOps:
+    """EngineOps from numpy arrays keyed by ARRAY_FIELDS, plus
+    UNSTRUCTURED_FIELDS when `structured` is False and SUMFACT_FIELDS when
+    K is sum-factorized (the fields of the JAX package's EngineOps carry
+    over one to one). Float arrays are cast to `dtype`, index arrays to
+    int64, scalars to Python floats. `func_sides` holds objects with the
+    FuncSide fields whose arrays numpy can read (either package's
+    FuncSide); `fdm_main`/`fdm_fs` are the port's FDMOps on `device`."""
     def f(key):
-        return torch.as_tensor(np.array(arrays[key]),
-                               dtype=dtype, device=device)
+        return torch.as_tensor(np.array(arrays[key]), dtype=dtype,
+                               device=device).contiguous()
 
     def idx(a):
         return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
@@ -277,10 +309,20 @@ def ops_from_numpy(arrays: dict, *, ngl, nelem, dim, dim_w, dim_s, is_ns,
 
     def lay(fam, ncomp):
         perms = np.asarray(arrays[f"lay_{fam}.perms"])
+        more = {} if structured else dict(
+            incidence=idx(arrays[f"lay_{fam}.incidence"]),
+            cell_nodes=idx(arrays[f"lay_{fam}.cell_nodes"]),
+            structured=False, mesh_dim=int(dim))
         return L.LocalLayout(
             perms=tuple(idx(p) for p in perms),
             inv_mult=f(f"lay_{fam}.inv_mult"), ngl=int(ngl), nelem=nelem,
-            ncomp=int(ncomp))
+            ncomp=int(ncomp), **more)
+
+    sumfact = None
+    if SUMFACT_FIELDS[0] in arrays:
+        sumfact = S.sumfact_from_numpy(
+            {k: arrays[f"sumfact.{k}"] for k in S.FIELDS}, device=device,
+            dtype=dtype)
 
     fsides = tuple(FuncSide(
         coords=torch.as_tensor(np.array(fs.coords), dtype=dtype,
@@ -303,27 +345,28 @@ def ops_from_numpy(arrays: dict, *, ngl, nelem, dim, dim_w, dim_s, is_ns,
         dim_s=int(dim_s), is_ns=bool(is_ns), cg_rtol=float(cg_rtol),
         cg_atol=float(cg_atol), cg_maxiter=int(cg_maxiter),
         func_sides=fsides, pc=pc, fdm_main=fdm_main, fdm_fs=fdm_fs,
-        krylov=krylov, fused=bool(fused))
+        krylov=krylov, fused=bool(fused), sumfact=sumfact)
 
 
 def build_engine(mesh, bc, em_K, em_Rw, op_curl, op_srt, op_div, op_weight,
                  rho, mu, *, device, dtype, cg_rtol=1e-12, cg_atol=0.0,
                  cg_maxiter=2000, pc="jacobi", krylov="cg",
-                 fused=True) -> EngineOps:
-    """Assemble EngineOps from setup-time numpy data (box mesh).
+                 fused=True, sumfact=None, basis=None) -> EngineOps:
+    """Assemble EngineOps from setup-time numpy data (any mesh).
 
-    em_*/op_* are the dense element matrices from `elements/kle.py`;
-    op_weight is the per-local-node quadrature weight used for lumping.
-    pc="fdm" builds the fast-diagonalization data of both masked systems
-    (numpy setup, tensors on `device`); as in the reference, pc falls back
-    to "jacobi" when `build_fdm` finds no tensor structure. krylov="gmres"
-    solves the masked systems with restarted GMRES(30) instead of PCG.
-    fused=False applies every operator through the plain ops/local.py
-    route instead of fused_apply.
+    em_*/op_* are the dense element matrices from `elements/kle.py` (shared,
+    or one per element on an unstructured mesh); op_weight is the
+    per-local-node quadrature weight used for lumping. pc="fdm" builds the
+    fast-diagonalization data of both masked systems (numpy setup, tensors
+    on `device`); as in the reference, pc falls back to "jacobi" when
+    `build_fdm` finds no tensor structure (every unstructured mesh).
+    krylov="gmres" solves the masked systems with restarted GMRES(30)
+    instead of PCG. fused=False applies every operator through the plain
+    ops/local.py route instead of fused_apply. sumfact (None: on for
+    unstructured meshes, off for box meshes, the reference's rule)
+    replaces the dense K by `ops/sumfact.py`'s product, built from
+    `basis` (the TensorBasis); without a basis K stays dense.
     """
-    if not getattr(mesh, "is_box", False):
-        raise NotImplementedError("unstructured meshes are not ported yet "
-                                  "(ROADMAP Queue A item 12)")
     if krylov not in ("cg", "gmres"):
         raise ValueError(f"unknown Krylov method '{krylov}'")
     if pc == "schwarz":
@@ -333,8 +376,18 @@ def build_engine(mesh, bc, em_K, em_Rw, op_curl, op_srt, op_div, op_weight,
             "(ROADMAP Queue A, options left out)")
     if pc not in ("jacobi", "fdm"):
         raise ValueError(f"unknown preconditioner '{pc}'")
+    box = getattr(mesh, "is_box", False)
     arrays = _engine_arrays(mesh, bc, em_K, em_Rw, op_curl, op_srt, op_div,
                             op_weight, rho, mu)
+    use_sf = (not box) if sumfact is None else bool(sumfact)
+    if use_sf and basis is not None:
+        sf = S.sumfact_arrays(basis, mesh.cell_corners)
+        arrays.update({f"sumfact.{k}": v for k, v in sf.items()})
+        arrays["KT"] = np.zeros((0,))
+    if fused and not box:
+        logger.info("fused=True: the fused kernel serves box meshes only; "
+                    "this unstructured mesh takes the per-element route "
+                    "and the gather DSS")
     fdm_main = fdm_fs = None
     if pc == "fdm":
         diag_g = L.to_global(mesh, arrays["diag"], mesh.dim)
@@ -348,12 +401,13 @@ def build_engine(mesh, bc, em_K, em_Rw, op_curl, op_srt, op_div, op_weight,
                            "(the reference's rule)")
             pc, fdm_fs = "jacobi", None
     return ops_from_numpy(
-        arrays, ngl=mesh.ngl, nelem=mesh.nelem, dim=mesh.dim,
+        arrays, ngl=mesh.ngl,
+        nelem=mesh.nelem if box else (mesh.n_cells,), dim=mesh.dim,
         dim_w=mesh.dim_w, dim_s=mesh.dim_s, is_ns=bc.needs_fs_stage,
         cg_rtol=cg_rtol, cg_atol=cg_atol, cg_maxiter=cg_maxiter,
         device=device, dtype=dtype, func_sides=_engine_func_sides(mesh, bc),
         pc=pc, fdm_main=fdm_main, fdm_fs=fdm_fs, krylov=krylov,
-        fused=fused)
+        fused=fused, structured=box)
 
 
 # ---------------------------------------------------------------------------
@@ -412,16 +466,25 @@ def _dot_v(ops: EngineOps):
 
 
 def _apply_mat(ops: EngineOps, lay, t, matT):
-    """y = DSS(t @ matT), the one hot operator-application pattern: the
-    fused kernel (its plain version on the CPU), or with ops.fused False
-    the plain ops/local.py route."""
-    if ops.fused:
+    """y = DSS(t @ matT), the one hot operator-application pattern: on a
+    box mesh the fused kernel (its plain version on the CPU); with
+    ops.fused False, or on an unstructured mesh, the plain ops/local.py
+    route."""
+    if ops.fused and lay.structured:
         y, _ = fused_apply(t, matT, ops.nelem, ops.ngl, lay.ncomp)
         return y
     return L.dss(lay, L.emm(t, matT))
 
 
 def apply_K(ops: EngineOps, v):
+    """K v assembled: the dense route of _apply_mat, or with ops.sumfact
+    the sum-factorized product and then the DSS (K1's DSS pass alone on a
+    box mesh with ops.fused, else the plain one)."""
+    if ops.sumfact is not None:
+        z = S.apply_sumfact_k(ops.sumfact, v)
+        if ops.fused and ops.lay_v.structured:
+            return dss_pass(z, ops.nelem, ops.ngl, ops.dim)[0]
+        return L.dss(ops.lay_v, z)
     return _apply_mat(ops, ops.lay_v, v, ops.KT)
 
 

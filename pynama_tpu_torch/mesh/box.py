@@ -8,8 +8,8 @@ once at setup.
 Border naming keeps the reference convention: left/right = x min/max,
 down/up = y min/max, back/front = z min/max.
 
-Left out until the IBM cases are ported: `node_separation` and
-`nodes_over_line`.
+`node_separation` and `nodes_over_line` share their API with the
+unstructured meshes (`mesh/unstructured.py`, `mesh/unstructured3d.py`).
 """
 from __future__ import annotations
 
@@ -207,3 +207,22 @@ class BoxMesh:
         for s in border_names(self.dim):
             mask[self.border_nodes(s)] = True
         return np.where(mask)[0].astype(np.int32)
+
+    def node_separation(self) -> float:
+        """Node spacing along axis 0, the one the IBM uses."""
+        widths = [(self.upper[d] - self.lower[d]) / self.nelem[d]
+                  for d in range(self.dim)]
+        return widths[0] / (self.ngl - 1)
+
+    def nodes_over_line(self, line: str, val: float):
+        """Nodes with coordinate `line` == val, sorted by the other coord
+        (2D)."""
+        if self.dim != 2 or line not in ("x", "y"):
+            raise ValueError("nodes_over_line takes line 'x' or 'y' on a 2D "
+                             "mesh")
+        dof, other = (0, 1) if line == "x" else (1, 0)
+        c = self.coords
+        nodes = np.where(c[:, dof] == val)[0]
+        order = np.argsort(c[nodes, other])
+        nodes = nodes[order]
+        return nodes, c[nodes, other]

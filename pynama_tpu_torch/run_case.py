@@ -65,13 +65,17 @@ def make_problem(cfg: dict, **kw):
 
 def _set_up(cfg: dict, args, **kw):
     """make_problem + setUp, logging which operator route the engine runs
-    (the user picks it with -fused; nothing switches it by itself)."""
+    (the user picks it with -fused and -sumfact; on a gmsh mesh it is
+    always the per-element route)."""
     p = make_problem(cfg, **_overrides(args, skip_ngl="ngl" in kw), **kw)
     p.setUp()
-    if p.engine_ops is not None:
-        logger.info("engine operator route: %s", "fused_apply (-fused on)"
-                    if p.engine_ops.fused else
-                    "plain ops/local.py DSS (-fused off)")
+    ops = p.engine_ops
+    if ops is not None:
+        route = ("per-element matrices and the gather DSS (gmsh mesh)"
+                 if not ops.lay_v.structured else "fused_apply (-fused on)"
+                 if ops.fused else "plain ops/local.py DSS (-fused off)")
+        logger.info("engine operator route: %s; K %s", route,
+                    "dense" if ops.sumfact is None else "sum-factorized")
     return p
 
 
@@ -277,8 +281,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("-fused-block", dest="fused_block", type=int,
                     default=None, help="not taken: " + FUSED_BLOCK_LEFT_OUT)
     ap.add_argument("-sumfact", default=None, choices=["on", "off"],
-                    help="sum-factorized K on unstructured meshes "
-                         "(unstructured meshes: ROADMAP item 12)")
+                    help="sum-factorized K (default: on for gmsh meshes, "
+                         "off for box meshes)")
     # TS tuning — the reference's -ts_* passthrough analog
     ap.add_argument("-rtol", type=float, default=None,
                     help="adaptive-RK relative tolerance")

@@ -330,13 +330,24 @@ def test_flag_errors(tmp_path, monkeypatch, capsys):
 
 
 def test_sumfact_reaches_problem(tmp_path, monkeypatch):
-    """-sumfact is taken and reaches Problem; on a box mesh it changes
-    nothing (as in the JAX package)."""
+    """-sumfact is taken and reaches Problem and the engine: on a box mesh
+    `on` sum-factorizes K and `off` keeps the dense K (as in the JAX
+    package), with the same run to round-off."""
     monkeypatch.chdir(tmp_path)
     args = ["-case", "taylor-green", "-log", "WARNING", "-nelem", "3", "3",
-            "-ngl", "3", "-solver", "cg", "-sumfact", "off"] + PORT
-    p, t, steps = trc.main(args)
-    assert p.opts["sumfact"] is False and p.engine_ops is not None
+            "-ngl", "3", "-solver", "cg", "-sumfact"]
+    runs = {}
+    for flag in ("off", "on"):
+        runs[flag] = trc.main(args + [flag] + PORT)
+        p = runs[flag][0]
+        assert p.opts["sumfact"] is (flag == "on")
+        assert p.engine_ops is not None
+        assert (p.engine_ops.sumfact is not None) is (flag == "on")
+    (poff, toff, soff), (pon, ton, son) = runs["off"], runs["on"]
+    assert pon.engine_ops.KT.numel() == 0
+    assert (son, ton) == (soff, toff)
+    np.testing.assert_allclose(pon.vort.numpy(), poff.vort.numpy(),
+                               rtol=1e-9, atol=1e-12)
 
 
 def test_cuda_without_card_raises(tmp_path, monkeypatch):

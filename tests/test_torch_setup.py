@@ -120,6 +120,10 @@ def test_port_never_imports_jax():
             "'pynama_tpu_torch.')]; "
             "[importlib.import_module(n) for n in names]; "
             "assert 'pynama_tpu_torch.exp.mm3x' in sys.modules, names; "
+            "assert {'pynama_tpu_torch.mesh.gmsh', "
+            "'pynama_tpu_torch.mesh.unstructured', "
+            "'pynama_tpu_torch.mesh.unstructured3d', "
+            "'pynama_tpu_torch.ops.sumfact'} <= set(names), names; "
             "assert 'jax' not in sys.modules; "
             "assert 'pynama_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
