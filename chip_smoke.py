@@ -2,7 +2,8 @@
 the main path, the analytic-function case, the FDM preconditioner, the
 global-layout path (direct, Operators, GMRES), the command line
 (run_case.py and its IO), gmsh meshes (quads and hexes, the gather DSS and
-the sum-factorized K) and the decomposition drivers at full size.
+the sum-factorized K), the immersed-boundary cases and, at full size,
+the exp/ decomposition runs.
 
     python3 chip_smoke.py
 
@@ -58,7 +59,9 @@ exits non-zero without the final result line:
             cavity under solver="gmres" (1 step), and two gmsh cases on
             the engine with the sumfact K and the gather DSS: Taylor-Green
             on 4^2 distorted quads (ngl=4) and 3D Taylor-Green on 3^3
-            distorted hexes (ngl=3)
+            distorted hexes (ngl=3); and tests/test_ibm.py's cylinder on
+            8^2 ngl=3, static (direct solve) and moving (CG), through the
+            IBM classes and their global rhs
 5. main     the flagship no-slip 3D lid-driven cavity (24^3 elements,
             ngl=4, float32, CG rtol 1e-6): Problem.setUp() and 2 accepted
             adaptive steps through start_solver(); prints setup phases,
@@ -162,6 +165,27 @@ exits non-zero without the final result line:
             within 1e-5 of K1's, device µs of each part beside K1's, and
             one rhs_local of the flagship's state: K1 6 launches, the DSS
             pass 4 + the CG loops' applications
+15. ibm     the three IBM case files at their own meshes through
+            run_case.make_problem, f32 (CG rtol 1e-6 where "auto" takes
+            CG), each cut to IBM_STEPS accepted steps replaying the steps
+            of tools/ibm_reference.py's JAX f64 run (ibm_replay; the card's
+            error norm of each step is printed): (a) ibm-static.yaml (50^2,
+            20,402 velocity dofs, "auto" -> direct), (b) ibm-dynamic.yaml
+            (100^2, 80,802, CG; the moving body's matrix-free correction
+            CG), (c) ibm-sphere.yaml (16x12x12, 61,875, CG); for each: setup
+            seconds by phase with the IBM part (ibm_tables, ibm_core,
+            ibm_factor) apart, C's condition number in f64, s/step, CG and
+            correction-CG iterations, the correction's device µs per step
+            (profiler) and event ms, max|H v - v_body| after the last
+            correction (<= IBM_BODY_RES_LIMIT), the cd, cl, cd_phys and
+            cl_phys histories against the JAX package's (force_gaps <=
+            IBM_FORCE_LIMIT), peak memory, K1 launches == the engine's
+            applications (0 in (a)), and one RK stage traced: no
+            host<->device copy as large as a field; (d) ibm-dynamic.yaml
+            through run_case (-device cuda, max-steps cut to IBM_STEPS in a
+            JSON copy, the same steps replayed, no snapshot due): fields
+            within CLI_FIELD_LIMIT of (b)'s, K1 launches == expected; (e)
+            spread_S twice on (b)'s last tables: bitwise equal
 
 The last three lines are the card's name and power limit (nvidia-smi), the
 record of the four kernels as JSON (K1's also with `launches_by_path`: its
@@ -169,7 +193,8 @@ launches in the main path's run and in each later path's, each counted from
 0: the global_direct CG rhs, global_ops, the gmres phase's GMRES solves,
 the cli phase's production run (a) and its -test kle solve (d), the
 unstructured phase's gmsh parts (a)-(c) and (f), which must be 0, and its
-box-mesh sumfact rhs (d); and `dss_pass_launches_by_path`: its DSS pass
+box-mesh sumfact rhs (d), the ibm phase's (a)-(d), `ibm_static` 0; and
+`dss_pass_launches_by_path`: its DSS pass
 launched alone in (d)) and the result line {"ok": true, "device": {...}}.
 A kernel's `bound_ms` is the larger of the
 operations of its function over the card's peak rate for their type and its
@@ -259,6 +284,71 @@ HEX_TG3D_REF_ERR = 0.055305306882286326
 HEX_TG3D_REF_T = 0.01695056634805064
 QUAD_TG_REF_ERR = 0.0037709075973298566
 QUAD_TG_REF_T = 0.012625623463579282
+# the ibm phase: the three IBM case files at their own meshes, f32, depth
+# cut to IBM_STEPS accepted steps from each uncut file's dt0 ((end-time -
+# start-time) / (10 max-steps), which a cut max-steps would change)
+IBM_STEPS = 3
+IBM_CASES = (("ibm-static", 0.12), ("ibm-dynamic", 3e-4),
+             ("ibm-sphere", 1e-3))
+# the JAX package's float64 runs of those cuts on the CPU, at the adaptive
+# stepper's defaults, the engine's CG at rtol 1e-12 (for ibm-static too,
+# in place of its direct solve): accepted times, the controller's dt after
+# each step, the force histories and max|H v - v_body| after the last
+# correction (`python tools/ibm_reference.py --part ref`, 137 s). The phase
+# replays these steps (ibm_replay), so both sides take the same dt
+IBM_REF = {
+    "ibm-static": {
+        "times": [0.0969500980362956, 0.19215974006220407,
+                  0.29872802545287575],
+        "dt": [0.09520964202590847, 0.10656828539067166,
+               0.11526139864209596],
+        "cd": [-2657858.9443060607, -1974437.9067851948,
+               -1621517.6148008755],
+        "cl": [-21.665588573407597, -48.410383465824154,
+               -36.990331891141324],
+        "cd_phys": [-34.029822431723204, -25.27966035003635,
+                    -20.761055292191976],
+        "cl_phys": [-0.00027739475550857284, -0.0006198209866340579,
+                    -0.00047360467666759265],
+        "body_res": 4.133320233362866e-17},
+    "ibm-dynamic": {
+        "times": [0.0003, 0.0032999999999999995, 0.017280747524982692],
+        "dt": [0.0029999999999999996, 0.013980747524982691,
+               0.013463981586557976],
+        "cd": [-16359897.66407506, -2985984.6630630298,
+               -3220313.3562505147],
+        "cl": [6167043.759734471, 1123210.357156314, 1179441.7799015958],
+        "cd_phys": [-41.63737463488746, -7.599592896170636,
+                    -8.195979975496694],
+        "cl_phys": [15.6956673376799, 2.8586688862608582,
+                    3.0017827897322347],
+        "body_res": 6.893502696116122e-13},
+    "ibm-sphere": {
+        "times": [0.001, 0.011, 0.111],
+        "dt": [0.01, 0.1, 0.6366812634999344],
+        "cd": [-126079.8916354505, -5987.723926750888, -725.3725049596824],
+        "cl": [-109.45769946216224, -8.537444014706281,
+               -0.4780729097288652],
+        "cd_phys": [-151.35975509281403, -7.188302713147065,
+                    -0.8708145547841499],
+        "cl_phys": [-0.13140470196087417, -0.010249258770945487,
+                    -0.0005739297329212193],
+        "body_res": 1.0965394477924893e-16},
+}
+# the card's f32 force histories against IBM_REF: each within
+# IBM_FORCE_LIMIT of its force's scale (force_gaps). The limit comes from
+# the port's own f32 (CG rtol 1e-6) vs f64 gap on the CPU, the same case
+# files cut to smaller meshes replaying the f64 steps (`python
+# tools/ibm_reference.py --part gap`): <= 5.5e-7 on ibm-static (12^2,
+# 25^2) and <= 1.3e-5 on ibm-sphere (8x6x6, 12x9x9), and on ibm-dynamic
+# growing with the mesh as (n/16)^2, 8.1e-6, 3.9e-5, 1.6e-4 at 16^2, 32^2,
+# 64^2 (an f32 CG stopped at rtol 1e-6 leaves an error that grows with
+# the system's condition), which reaches 3.2e-4 at the file's 100^2: the
+# limit is 3x that, rounded up. The body residual max|H v - v_body| after
+# the last correction (JAX f64: 1e-16 to 7e-13; the port's f32 on those
+# cuts: <= 6.9e-7) is held to IBM_BODY_RES_LIMIT, 14x that, rounded up
+IBM_FORCE_LIMIT = 1e-3
+IBM_BODY_RES_LIMIT = 1e-5
 # the decomposition drivers: the flagship shape, depth cut to 200 applies
 # per chain and 3 rounds
 DRIVER_ARGS = ["24", "4", "--nit", "200", "--rounds", "3"]
@@ -525,6 +615,69 @@ def gmsh_tg_config(path, lib, ngl, max_steps):
             "time-solver": {"max-steps": max_steps, "start-time": 0,
                             "end-time": 10},
             "boundary-conditions": cf, "initial-conditions": cf, "tests": cf}
+
+
+def ibm_cylinder_config(nelem, vel, max_steps):
+    """tests/test_ibm.py's cylinder: rho 0.5, mu 0.01, [-3, 3]^2 at ngl=3,
+    uniform flow [1, 0], a circle of radius 0.5 at the origin, `vel`
+    "static" or "dynamic"; a force entry every step."""
+    return {"name": "ibm-test", "save-n-steps": 10,
+            "material-properties": {"rho": 0.5, "mu": 0.01},
+            "domain": {"ngl": 3, "box-mesh": {
+                "nelem": list(nelem), "lower": [-3, -3], "upper": [3, 3]}},
+            "time-solver": {"start-time": 0, "end-time": 0.5,
+                            "max-steps": max_steps},
+            "boundary-conditions": {"uniform": {"velocity": [1.0, 0.0]}},
+            "initial-conditions": {"vorticity": [0]},
+            "bodies": [{"type": "circle", "vel": vel, "radius": 0.5,
+                        "center": [0, 0]}]}
+
+
+def ibm_config(run_case, name, nelem=None):
+    """IBM case file `name` (run_case.load_case of either package), depth
+    cut to IBM_STEPS accepted steps, with save-n-steps 10: a force entry
+    every step (every save-n-steps // 10) and no snapshot due; `nelem`
+    cuts the mesh."""
+    cfg = run_case.load_case(name)
+    cfg["time-solver"]["max-steps"] = IBM_STEPS
+    cfg["save-n-steps"] = 10
+    if nelem is not None:
+        cfg["domain"]["box-mesh"]["nelem"] = list(nelem)
+    return cfg
+
+
+@contextlib.contextmanager
+def ibm_replay(ibm_module, dts, next_dts):
+    """Replay a step history in the IBM cases of `ibm_module` (the port's
+    cases.ibm): its AdaptiveStepper is replaced by one whose k-th step
+    takes dts[k] and leaves next_dts[k] as the controller's dt (which the
+    force history divides by), whatever the error norm. Yields the error
+    norm of each step taken, which the card's own controller would have
+    held to <= 1."""
+    base = ibm_module.AdaptiveStepper
+    enorms = []
+
+    class Replay(base):
+        def step(self, t, y, aux, t_max=np.inf):
+            k = len(enorms)
+            res = self.attempt(t, dts[k], y, aux)
+            enorms.append(float(res.enorm))
+            self.dt = next_dts[k]
+            return t + dts[k], res.y, res.aux
+
+    ibm_module.AdaptiveStepper = Replay
+    try:
+        yield enorms
+    finally:
+        ibm_module.AdaptiveStepper = base
+
+
+def ibm_schedule(ref):
+    """(dts, next_dts) of a reference history from start time 0: the dt of
+    each accepted step (between its accepted times: a rejected attempt
+    shortens it) and the controller's dt after it."""
+    times = [0.0] + list(ref["times"])
+    return [b - a for a, b in zip(times, times[1:])], list(ref["dt"])
 
 
 def phase_device(torch):
@@ -1125,7 +1278,10 @@ def parity_cases(tmp):
     GMRES takes ~15x CG's iterations on this cavity, and 3 steps took 75 s
     of GPU and CPU. The two gmsh cases (distorted quads and hexes, engine
     with the sumfact K and the gather DSS) run the Taylor-Green case files'
-    physics on meshes cut to 4^2 and 3^3 elements. The accepted steps each
+    physics on meshes cut to 4^2 and 3^3 elements. The two IBM cases
+    (tests/test_ibm.py's cylinder, 8^2 ngl=3) take the IBM loop and its
+    global rhs: the static body on the direct solve, the moving one on the
+    engine's CG through Problem's device shuttles. The accepted steps each
     case must take are its config's max-steps."""
     opts = dict(solver="cg", cg_rtol=1e-13, cg_maxiter=4000)
     cavity = cavity_config((3, 3, 3), 3, 1.0, 0.02, [1.0, 0, 0], 3, 1.0)
@@ -1150,24 +1306,31 @@ def parity_cases(tmp):
          gmsh_tg_config(write_hex_msh(os.path.join(tmp, "hex.msh"), 3, 3, 3,
                                       MESH_DISTORT), "taylor_green3d", 3, 3),
          opts, 1e-4),
+        ("ibm static cylinder 8^2 ngl=3 direct",
+         ibm_cylinder_config((8, 8), "static", 3), dict(solver="direct"),
+         1e-4),
+        ("ibm moving cylinder 8^2 ngl=3 cg",
+         ibm_cylinder_config((8, 8), "dynamic", 3), opts, 1e-4),
     ]
 
 
 def phase_parity(torch, dev):
-    from pynama_tpu_torch.cases import Problem
     from pynama_tpu_torch.engine.local_engine import rhs_local
+    from pynama_tpu_torch.run_case import make_problem
 
     tmp = tempfile.mkdtemp(prefix="parity-")
     try:
         for label, cfg, opts, tol in parity_cases(tmp):
             out = {}
             for name, device in (("gpu", dev), ("cpu", torch.device("cpu"))):
-                p = Problem(cfg, device=device, dtype=torch.float64, **opts)
+                p = make_problem(cfg, device=device, dtype=torch.float64,
+                                 **opts)
                 p.setUp()
                 rng = np.random.default_rng(0)
                 vort = rng.standard_normal((p.mesh.n_nodes, p.dim_w))
                 ops = p.engine_ops
-                if ops is None:         # the global layout (direct solve)
+                if ops is None or "bodies" in cfg:
+                    # the global layout (direct solve; the IBM cases' rhs)
                     f, _ = p.rhs(p.start_time, vort, p.vel * 0.0)
                 else:
                     vel = torch.zeros(
@@ -2508,6 +2671,267 @@ def phase_unstructured(torch, dev, flagship, t_flagship):
 
 
 
+def force_gaps(a, b):
+    """max|a_k - b_k| of each force history k over the scale of b's force
+    it belongs to: max(|cd|, |cl|) for cd and cl, max(|cd_phys|,
+    |cl_phys|) for the other two (the static cylinder's cl is round-off of
+    a symmetric flow, and a gap relative to it alone would read its
+    noise)."""
+    out = {}
+    for pair in (("cd", "cl"), ("cd_phys", "cl_phys")):
+        scale = max(np.abs(np.asarray(b[k], dtype=np.float64)).max()
+                    for k in pair)
+        for k in pair:
+            out[k] = float(np.abs(np.asarray(a[k], dtype=np.float64)
+                                  - np.asarray(b[k], dtype=np.float64)).max()
+                           / scale)
+    return out
+
+
+def _flat(history):
+    """A force history as floats (cd and cl hold one list per body)."""
+    return [float(np.ravel(v)[0]) for v in history]
+
+
+def _memcpy_record(torch, fn):
+    """The host<->device copies fn makes, from a torch.profiler trace
+    (CUDA activity) exported as Chrome JSON: [(name, bytes), ...]."""
+    act = torch.profiler.ProfilerActivity.CUDA
+    with torch.profiler.profile(activities=[act]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    cps = [e for e in events if e.get("cat") == "gpu_memcpy"]
+    check(all("bytes" in e.get("args", {}) for e in cps),
+          f"memcpy trace events without a byte count: {cps[:2]}")
+    return [(e["name"], int(e["args"]["bytes"])) for e in cps]
+
+
+def _ibm_run(torch, dev, run_case, name, dt0, part):
+    """One IBM case file at its own mesh in f32 (CG rtol 1e-6 where "auto"
+    takes CG), replaying IBM_REF's steps: setup, the run, the correction's
+    device time, the body residual, the forces against the JAX package's,
+    K1's launches against the engine's applications, and one traced RK
+    stage's copies, printed as phase ibm_<part> before the gates. Returns
+    (row, problem)."""
+    from pynama_tpu_torch.cases import ibm as tibm
+    from pynama_tpu_torch.ibm import interpolation as I
+    from pynama_tpu_torch.ops.fused import fused_apply
+
+    ref = IBM_REF[name]
+    cfg = ibm_config(run_case, name)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fused_apply.launches = 0
+    p = run_case.make_problem(cfg, device=dev, dtype=torch.float32,
+                              cg_rtol=1e-6, cg_maxiter=1000)
+    t0 = time.perf_counter()
+    p.setUp()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    peak_setup = torch.cuda.max_memory_allocated(dev)
+    cond = float(np.linalg.cond(p.core.double().cpu().numpy()))
+    p.cg_log = []
+    stages, corr_calls = [], []
+    rhs, per_step = p.rhs, p._per_step_correction
+    p.rhs = lambda t, y, aux: stages.append(t) or rhs(t, y, aux)
+
+    def probed(vel, t):
+        corr_calls.append((vel, t, getattr(p, "_flux", None)))
+        return per_step(vel, t)
+
+    p._per_step_correction = probed
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with ibm_replay(tibm, *ibm_schedule(ref)) as enorms:
+        t_end, steps = p.start_solver(dt0=dt0)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    k1 = fused_apply.launches
+    peak_run = torch.cuda.max_memory_allocated(dev)
+    ops = p.engine_ops
+    # per solve_kle on the engine: Rw, apply_K(vc) and the A0 residual per
+    # stage, the curl between the stages, plus the CG loops' applications
+    n_solves = len(p.cg_log)
+    cg_iters = [int(it) for it, _ in p.cg_log]
+    ns = ops is not None and ops.is_ns
+    k1_expected = 0 if ops is None else (
+        3 * n_solves + (n_solves // 2 if ns else 0)
+        + sum(n for _, n in p.cg_log))
+    corr_log = list(getattr(p, "corr_log", []))
+    xy = getattr(p, "_xy", None)
+    nodes, w = (p.nodes_tab, p.w_tab) if xy is None \
+        else I.support_tables(p.ibm_ops, xy)
+    body_res = float((I.interp_H(p.ibm_ops, nodes, w, p.vel)
+                      - p._field(p.body.velocities())).abs().max())
+    hist = {k: _flat(p.history[k]) for k in ("cd", "cl", "cd_phys",
+                                              "cl_phys")}
+    gaps = force_gaps(hist, ref)
+    finite = bool(torch.isfinite(p.vort).all()) and bool(
+        torch.isfinite(p.vel).all())
+    # the correction of the last step again, from the same inputs (the
+    # moving body's CG from the same warm start): device µs per step
+    vel_c, t_c, flux0 = corr_calls[-1]
+
+    def corr():
+        if flux0 is not None:
+            p._flux = flux0
+        per_step(vel_c, t_c)
+
+    corr_us, corr_kernels = _device_us(torch, corr, calls=5)
+    if flux0 is not None:
+        p._flux = flux0
+    corr_ms = _median_ms(torch, corr, reps=5, warmup=1)
+    # one RK stage (Problem.rhs) traced: its host<->device copies
+    vort_s, vel_s = p.vort.clone(), p.vel.clone()
+    copies = {}
+    for cname, nbytes in _memcpy_record(
+            torch, lambda: rhs(t_end, vort_s, vel_s)):
+        n, most = copies.get(cname, (0, 0))
+        copies[cname] = (n + 1, max(most, nbytes))
+    host_copy = max([b for k, (_, b) in copies.items()
+                     if "HtoD" in k or "DtoH" in k], default=0)
+    field_bytes = p.mesh.n_nodes * min(p.dim, p.dim_w) * 4
+    row = dict(
+        case=f"{name}.yaml {'x'.join(map(str, p.mesh.nelem))} ngl={p.ngl} "
+        f"f32, {IBM_STEPS} steps replayed from tools/ibm_reference.py",
+        n_nodes=p.mesh.n_nodes, velocity_dofs=p.mesh.n_nodes * p.dim,
+        lag_points=p.body.n_nodes, solver=p.solver_method,
+        core_route="eq-tensor" if p.nodes_tab.shape[0] ** 2
+        * p.nodes_tab.shape[1] ** 2 <= 2 ** 27 else "spgemm",
+        core_cond_f64=cond, setup_s=setup_s,
+        setup_phases_s=_direct_setup_s(p) if p.engine_ops is None
+        else p.setup_phases,
+        ibm_setup_s={k: v for k, v in p.setup_phases.items()
+                     if k.startswith("ibm_")},
+        peak_mem_setup_bytes=peak_setup, accepted_steps=steps,
+        attempts=len(enorms), card_enorms=enorms, t_end=t_end,
+        ref_t_end=ref["times"][-1], run_s=run_s,
+        s_per_step=run_s / max(steps, 1), rhs_evals=len(stages),
+        cg_iters=cg_iters,
+        cg_loop_applies=sum(n for _, n in p.cg_log[:n_solves]),
+        corr_cg=[it for it, _ in corr_log],
+        corr_cg_relres=[rr for _, rr in corr_log],
+        corr_device_us=corr_us, corr_ms=corr_ms,
+        corr_kernels=len(corr_kernels),
+        body_res=body_res, ref_body_res=ref["body_res"],
+        body_res_limit=IBM_BODY_RES_LIMIT, forces=hist,
+        force_gaps=gaps, force_limit=IBM_FORCE_LIMIT,
+        stage_memcpys={k: {"count": n, "max_bytes": b}
+                       for k, (n, b) in copies.items()},
+        stage_host_copy_max_bytes=host_copy, field_bytes=field_bytes,
+        k1_launches=k1, k1_expected=k1_expected,
+        peak_mem_run_bytes=peak_run, finite=finite)
+    emit(f"ibm_{part}", **row)
+    check(finite, f"ibm {name}: non-finite fields")
+    check(steps == IBM_STEPS and abs(t_end - ref["times"][-1]) <= 1e-12,
+          f"ibm {name}: {steps} steps to t={t_end}, want {IBM_STEPS} to "
+          f"{ref['times'][-1]}")
+    check(body_res <= IBM_BODY_RES_LIMIT, f"ibm {name}: max|H v - v_body| "
+          f"{body_res:.3e} > {IBM_BODY_RES_LIMIT}")
+    check(all(g <= IBM_FORCE_LIMIT for g in gaps.values()),
+          f"ibm {name}: forces vs the JAX package's {gaps} > "
+          f"{IBM_FORCE_LIMIT}")
+    check(k1 == k1_expected, f"ibm {name}: K1 launched {k1} times, the "
+          f"engine made {k1_expected} applications")
+    check(host_copy < field_bytes, f"ibm {name}: an RK stage copied "
+          f"{host_copy} bytes between host and device (a field is "
+          f"{field_bytes}): {copies}")
+    return row, p
+
+
+def phase_ibm(torch, dev):
+    """The three IBM case files at their own meshes through Problem (a)-(c);
+    (d) ibm-dynamic.yaml through run_case against (b); (e) spread_S twice
+    on (b)'s last tables, bitwise. Returns K1's launches by path."""
+    from pynama_tpu_torch import run_case
+    from pynama_tpu_torch.cases import ibm as tibm
+    from pynama_tpu_torch.ibm import interpolation as I
+    from pynama_tpu_torch.ops.fused import fused_apply
+
+    t_phase = time.perf_counter()
+    k1, probs = {}, {}
+    for (name, dt0), part in zip(IBM_CASES, "abc"):
+        row, p = _ibm_run(torch, dev, run_case, name, dt0, part)
+        k1[name.replace("-", "_")] = row["k1_launches"]
+        if name == "ibm-dynamic":
+            probs[name] = (p, row)
+        del p
+    check(k1["ibm_static"] == 0, f"ibm (a): the direct path launched K1 "
+          f"{k1['ibm_static']} times")
+    pb, row_b = probs.pop("ibm-dynamic")
+
+    # (d) the same case file through run_case, cut to IBM_STEPS steps in a
+    # JSON copy (the file's save-n-steps, 100: no snapshot due)
+    hdf5 = _importable("h5py")
+    tmp = tempfile.mkdtemp(prefix="ibm-cli-")
+    try:
+        cfg = run_case.load_case("ibm-dynamic")
+        cfg["time-solver"]["max-steps"] = IBM_STEPS
+        cfg["save-dir"] = os.path.join(tmp, "out")
+        path = os.path.join(tmp, "ibm-dynamic-cut.yaml")
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        argv = ["-case", path, "-device", "cuda", "-dtype", "float32",
+                "-cg-rtol", "1e-6", "-maxiter", "1000", "-dt0",
+                repr(dict(IBM_CASES)["ibm-dynamic"]), "-log", "WARNING"]
+        fused_apply.launches = 0
+        t0 = time.perf_counter()
+        with _cli_probe(torch, run_case), ibm_replay(
+                tibm, *ibm_schedule(IBM_REF["ibm-dynamic"])):
+            pd, t_d, steps_d = _cli_production(run_case, argv, hdf5)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        k1_cli = fused_apply.launches
+        n = len(pd.cg_log)
+        k1_cli_expected = 3 * n + (n // 2 if pd.engine_ops.is_ns else 0) \
+            + sum(a for _, a in pd.cg_log)
+        rel = {k: _rel(getattr(pd, k).cpu().numpy(),
+                       getattr(pb, k).cpu().numpy()) for k in ("vort", "vel")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("ibm_d", case="ibm-dynamic.yaml through run_case -device cuda, "
+         f"max-steps {IBM_STEPS}", route="hdf5" if hdf5 else "binary",
+         problem=type(pd).__name__, accepted_steps=steps_d, t_end=t_d,
+         t_b=row_b["t_end"], seconds=cli_s, rel_vs_b=rel,
+         limit=CLI_FIELD_LIMIT, k1_launches=k1_cli,
+         k1_expected=k1_cli_expected)
+    check(type(pd).__name__ == "ImmersedBoundaryDynamic",
+          f"ibm (d): run_case built {type(pd).__name__}")
+    check(steps_d == IBM_STEPS and t_d == row_b["t_end"],
+          f"ibm (d): {steps_d} steps to {t_d}, (b) {row_b['t_end']}")
+    check(all(v <= CLI_FIELD_LIMIT for v in rel.values()),
+          f"ibm (d): fields vs (b) {rel} > {CLI_FIELD_LIMIT}")
+    check(k1_cli == k1_cli_expected, f"ibm (d): K1 launched {k1_cli} "
+          f"times, the engine made {k1_cli_expected} applications")
+    k1["ibm_cli"] = k1_cli
+    del pd
+
+    # (e) spread_S twice on (b)'s last tables
+    nodes, w = I.support_tables(pb.ibm_ops, pb._xy)
+    flux = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (pb.body.n_nodes, pb.dim)), dtype=torch.float32, device=dev)
+    s1 = I.spread_S(pb.ibm_ops, nodes, w, flux, pb.mesh.n_nodes)
+    s2 = I.spread_S(pb.ibm_ops, nodes, w, flux, pb.mesh.n_nodes)
+    plan = I.spread_plan(nodes)
+    bitwise = bool(torch.equal(s1, s2))
+    emit("ibm_e", case="spread_S twice on (b)'s last tables",
+         bitwise=bitwise, touched_nodes=int(plan.uniq.numel()),
+         max_fanin=int(plan.slots.shape[1]),
+         spread_device_us=_device_us(torch, lambda: I.spread_S(
+             pb.ibm_ops, nodes, w, flux, pb.mesh.n_nodes, plan))[0],
+         phase_s=time.perf_counter() - t_phase)
+    check(bitwise, "ibm (e): two spread_S calls differ")
+    return k1
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2537,6 +2961,7 @@ def main() -> int:
     k1_paths.update(phase_cli(torch, dev))
     k1_more, dss_paths = phase_unstructured(torch, dev, problem, t_main)
     k1_paths.update(k1_more)
+    k1_paths.update(phase_ibm(torch, dev))
 
     record["launches"] = launches
     record["launches_by_path"] = k1_paths

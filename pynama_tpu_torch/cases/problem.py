@@ -34,8 +34,9 @@ gather DSS and sum-factorizes K by default (`sumfact=`, which a box mesh
 takes too when asked), and the global layout takes the per-element
 matrices as they are.
 
-Left out until their ROADMAP items: IBM bodies (item 13) and sharded runs
-(item 14).
+IBM bodies are the subclasses in `cases/ibm.py` (`run_case.make_problem`
+picks them for a config with `bodies`). Left out until ROADMAP Queue A
+item 14: sharded runs (`ndev > 1`), the IBM ones included.
 """
 from __future__ import annotations
 
@@ -294,13 +295,23 @@ class Problem:
 
     # ------------------------------------------------- local layout shuttles
     def to_local(self, x) -> torch.Tensor:
-        """(n_nodes, ncomp) global field -> (E, nn*ncomp) local tensor."""
-        return torch.as_tensor(L.to_local(self.mesh, host_array(x)),
-                               dtype=self.dtype, device=self.device)
+        """(n_nodes, ncomp) global field (numpy or a tensor) -> (E,
+        nn*ncomp) local tensor: a gather over cell_nodes on the device
+        (the JAX package's traced branch), no host copy of a tensor."""
+        x = self._field(x)
+        cn = self._index_pair[0]
+        return x[cn].reshape(cn.shape[0], -1)
 
     def to_global(self, t, ncomp) -> np.ndarray:
         """(E, nn*ncomp) consistent local field -> (n_nodes, ncomp) numpy."""
         return L.to_global(self.mesh, host_array(t), ncomp)
+
+    def _to_global_dev(self, t, ncomp) -> torch.Tensor:
+        """to_global as a gather of each node's lowest slot (the incidence
+        table's first column) on the device. A consistent local field holds
+        equal values in every slot of a node, so this equals the host
+        route bit for bit."""
+        return t.reshape(-1, ncomp)[self._index_pair[1][:, 0]]
 
     def _coords64(self) -> torch.Tensor:
         """Node coordinates on the device in float64 (analytic fields are
@@ -352,10 +363,10 @@ class Problem:
         t = self.start_time if t is None else t
         if self.engine_ops is not None:
             vort_l, vel_l = solve_kle_local(
-                self.engine_ops, self.to_local(vort), self.to_local(vel), t,
-                self.cg_log)
-            return (self._field(self.to_global(vort_l, self.dim_w)),
-                    self._field(self.to_global(vel_l, self.dim)))
+                self.engine_ops, self.to_local(vort), self.to_local(vel),
+                t, self.cg_log)
+            return (self._to_global_dev(vort_l, self.dim_w),
+                    self._to_global_dev(vel_l, self.dim))
         vort = self.bc.apply_vorticity(self._field(vort), t, self.nu)
         vel = self.bc.apply_velocity(self._field(vel), t, self.nu)
         if self.kle.is_ns:

@@ -56,11 +56,17 @@ def load_case(name: str) -> dict:
 
 
 def make_problem(cfg: dict, **kw):
+    """The case's Problem: a config with `bodies` is an IBM case, moving if
+    any body has `vel: dynamic`."""
     from pynama_tpu_torch.cases import Problem
+    from pynama_tpu_torch.cases.ibm import (ImmersedBoundaryDynamic,
+                                            ImmersedBoundaryStatic)
     if "bodies" in cfg:
-        raise NotImplementedError("IBM bodies are not ported yet (ROADMAP "
-                                  "Queue A item 13)")
-    return Problem(cfg, **kw)
+        dyn = any(b.get("vel") == "dynamic" for b in cfg["bodies"])
+        cls = ImmersedBoundaryDynamic if dyn else ImmersedBoundaryStatic
+    else:
+        cls = Problem
+    return cls(cfg, **kw)
 
 
 def _set_up(cfg: dict, args, **kw):

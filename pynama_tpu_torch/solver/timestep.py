@@ -5,8 +5,7 @@ pair (PETSc TS 'rk'/'5bs') with a PETSc-'basic'-style step controller (WRMS
 error norm, safety 0.9, factor clip [0.1, 10]) and MATCHSTEP final-time
 handling. The stage cascade runs eagerly on the device; the accept/reject
 controller reads one scalar (the error norm) per attempt on the host.
-
-Left out until the IBM cases are ported: `AdaptiveStepper`.
+`AdaptiveStepper` steps the IBM cases one accepted step at a time.
 """
 from __future__ import annotations
 
@@ -116,6 +115,54 @@ def make_step(rhs: Callable, tableau: Tableau, atol: float, rtol: float,
         return StepResult(y=y5, enorm=err_norm(e), aux=aux)
 
     return attempt
+
+
+class AdaptiveStepper:
+    """Single-step adaptive stepper with persistent dt (the IBM cases' loop:
+    one accepted RK step per call, with the step controller's dt carried
+    across calls).
+
+    The JAX package's `jit=` and `params=` are left out: they choose
+    between tracing the attempt under XLA and passing an operator pytree
+    through the jit boundary, which eager PyTorch has no use for; so is
+    `err_norm`, which no caller passes (the attempt takes make_step's RMS
+    norm). `attempt`, when given, is a prebuilt trial stepper attempt(t,
+    dt, y, aux) -> StepResult used as it is (rhs is then ignored)."""
+
+    def __init__(self, rhs: Optional[Callable], atol: float = 1e-4,
+                 rtol: float = 1e-4, tableau: str = "5bs",
+                 safety: float = 0.9, clip: tuple = (0.1, 10.0),
+                 dt_min: float = 1e-14, attempt: Optional[Callable] = None):
+        tab = get_tableau(tableau)
+        if attempt is None:
+            attempt = make_step(rhs, tab, atol, rtol)
+        self.attempt = attempt
+        self.expo = -1.0 / tab.order
+        self.safety, self.clip, self.dt_min = safety, clip, dt_min
+        self.dt = None
+
+    def step(self, t: float, y, aux, t_max: float = np.inf):
+        """Advance ONE accepted step from t; returns (t_new, y, aux).
+        dt is clamped so t_new <= t_max (MATCHSTEP)."""
+        if self.dt is None:
+            raise RuntimeError("set stepper.dt before stepping")
+        while True:
+            dt = min(self.dt, t_max - t)
+            res = self.attempt(t, dt, y, aux)
+            enorm = float(res.enorm)
+            if not np.isfinite(enorm):
+                self.dt = dt * 0.25
+                if self.dt < self.dt_min:
+                    raise RuntimeError("timestep underflow (non-finite)")
+                continue
+            factor = self.safety * max(enorm, 1e-30) ** self.expo
+            factor = min(max(factor, self.clip[0]), self.clip[1])
+            if enorm <= 1.0:
+                self.dt = dt * factor
+                return t + dt, res.y, res.aux
+            self.dt = dt * factor
+            if self.dt < self.dt_min:
+                raise RuntimeError("timestep underflow (step rejected)")
 
 
 def adaptive_loop(attempt: Callable, t0: float, t_end: float, y0, aux0,

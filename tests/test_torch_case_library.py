@@ -4,15 +4,19 @@ overrides of tests/test_case_library.py, float64 on the CPU, the final
 fields compared (rtol 1e-6, atol 1e-8: the tolerance of
 tests/test_torch_transient.py), with the same accepted steps and end
 times within STEP_T_TOL (a run that stops at max-steps ends at a step time,
-which tests/test_torch_cli.py explains). The IBM case files raise the port's
-item-13 error, and the port's case directory holds the JAX package's files
-byte for byte."""
+which tests/test_torch_cli.py explains). The IBM case files run at the cut
+meshes of tests/test_case_library.py's IBM cases with a snapshot every
+step, so the IBM fields (ibm_zone, affected_nodes) and the force-history
+yaml are written and read back. The port's case directory holds the JAX
+package's files byte for byte."""
 import filecmp
 import os
 
+import h5py
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from pynama_tpu import run_case as jrc
 from pynama_tpu_torch import run_case as trc
@@ -97,9 +101,54 @@ def test_case_matches(name, tmp_path, monkeypatch):
     assert sum(f.startswith("vec-data-") for f in files) == st
 
 
+#: tests/test_case_library.py's cut meshes and runs of the IBM case files
+IBM_TINY = {"ibm-static": ([12, 12], 0.005), "ibm-dynamic": ([12, 12], 0.002),
+            "ibm-sphere": ([8, 6, 6], 0.002)}
+
+
 @pytest.mark.parametrize("name", IBM_CASES)
-def test_ibm_case_raises(name):
-    cfg = trc.load_case(name)
-    assert "bodies" in cfg
-    with pytest.raises(NotImplementedError, match="item 13"):
-        trc.make_problem(cfg, device="cpu", dtype=torch.float64)
+def test_ibm_case_runs(name, tmp_path, monkeypatch):
+    out = {}
+    for pkg, rc in (("jax", jrc), ("torch", trc)):
+        d = tmp_path / pkg
+        d.mkdir()
+        monkeypatch.chdir(d)
+        cfg = rc.load_case(name)
+        nelem, end = IBM_TINY[name]
+        cfg["domain"]["box-mesh"]["nelem"] = nelem
+        cfg["time-solver"] = {"start-time": 0, "end-time": end,
+                              "max-steps": 2}
+        cfg["save-dir"] = str(d / "out")
+        cfg["save-n-steps"] = 1
+        kw = dict(device="cpu", dtype=torch.float64) if pkg == "torch" \
+            else {}
+        p = rc.make_problem(cfg, **kw)
+        p.setUp()
+        p.setup_viewer()
+        t, steps = p.run(dt0=1e-4)
+        out[pkg] = (p, t, steps, d / "out")
+    (pj, tj, sj, dj), (pt, tt, st, dt) = out["jax"], out["torch"]
+    assert type(pt).__name__ == type(pj).__name__
+    assert sj == st == 2 and abs(tj - tt) <= STEP_T_TOL
+    np.testing.assert_allclose(pt.vort.numpy(), np.asarray(pj.vort),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(pt.vel.numpy(), np.asarray(pj.vel),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(pt.history["cd"], pj.history["cd"],
+                               rtol=RTOL)
+    files = sorted(f.name for f in dj.iterdir())
+    assert files == sorted(f.name for f in dt.iterdir())
+    assert sum(f.startswith("vec-data-") for f in files) == st
+    with h5py.File(dj / f"vec-data-{st:05d}.h5") as fj, \
+            h5py.File(dt / f"vec-data-{st:05d}.h5") as ft:
+        for k in ("ibm_zone", "affected_nodes"):
+            zone = ft[f"/fields/{k}"][()]
+            np.testing.assert_array_equal(zone, fj[f"/fields/{k}"][()])
+            assert zone.sum() > 0
+        touched = np.zeros(pt.mesh.n_nodes)
+        touched[np.unique(pt.nodes_tab.numpy())] = 1.0
+        np.testing.assert_array_equal(ft["/fields/ibm_zone"][()].ravel(),
+                                      touched)
+    with open(str(dt) + ".yaml") as f:
+        hist = yaml.safe_load(f)
+    assert hist["steps"] == [1, 2] and hist["lagPoints"] == pt.body.n_nodes

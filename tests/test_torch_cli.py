@@ -322,11 +322,35 @@ def test_flag_errors(tmp_path, monkeypatch, capsys):
     assert "Options the port leaves out" in capsys.readouterr().err
     with pytest.raises(NotImplementedError, match="item 14"):
         trc.main(base + ["-solver", "cg", "-ndev", "2"])
-    for name in ("ibm-static", "ibm-dynamic", "ibm-sphere"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            trc.main(["-case", name] + PORT)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        trc.main(["-case", "ibm-static", "-log", "WARNING", "-nelem", "4",
+                  "4", "-ndev", "2"] + PORT)
     with pytest.raises(FileNotFoundError):
         trc.load_case("no-such-case-xyz")
+
+
+@pytest.mark.parametrize("name", ["ibm-static", "ibm-dynamic"])
+def test_ibm_case_through_main(name, tmp_path, monkeypatch):
+    """An IBM case file (cut to 8^2 elements and 2 steps in a copy)
+    through run_case.main gives the fields, steps and force history of
+    run_case.make_problem driven directly on the same config."""
+    monkeypatch.chdir(tmp_path)
+    cfg = trc.load_case(name)
+    cfg["time-solver"].update({"max-steps": 2, "end-time": 0.01})
+    cfg["save-dir"] = str(tmp_path / "out")
+    case = tmp_path / f"{name}-cut.yaml"
+    case.write_text(yaml.safe_dump(cfg))
+    p, t, steps = trc.main(["-case", str(case), "-log", "WARNING", "-nelem",
+                            "8", "8", "-dt0", "1e-4"] + PORT)
+    assert type(p).__name__ == ("ImmersedBoundaryDynamic" if name ==
+                                "ibm-dynamic" else "ImmersedBoundaryStatic")
+    q = trc.make_problem(cfg, device="cpu", dtype=torch.float64,
+                         nelem=[8, 8])
+    q.setUp()
+    tq, sq = q.start_solver(dt0=1e-4)
+    assert (steps, t) == (sq, tq) and steps == 2
+    assert torch.equal(p.vort, q.vort) and torch.equal(p.vel, q.vel)
+    assert p.history["cd"] == q.history["cd"]
 
 
 def test_sumfact_reaches_problem(tmp_path, monkeypatch):
