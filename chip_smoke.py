@@ -186,6 +186,27 @@ exits non-zero without the final result line:
             JSON copy, the same steps replayed, no snapshot due): fields
             within CLI_FIELD_LIMIT of (b)'s, K1 launches == expected; (e)
             spread_S twice on (b)'s last tables: bitwise equal
+16. sharded SHARDED_NDEV ranks on the one card, spawned by the port's
+            entry points (parallel/sharded_engine.py: gloo, every
+            collective staged through pinned host buffers, since NCCL
+            takes one rank per card): (a) f64 parity against one device on
+            the card, relative error <= PARITY_LIMIT, the same accepted
+            steps and end time: the 3D no-slip cavity (2^3 ngl=3, CG rtol
+            1e-10, 3 steps through Problem(..., ndev=2).start_solver), the
+            same under pc="fdm" (the slab FDM, 1 step), one rhs of the
+            same with overlap_dss off and on on the plain DSS route (each
+            other and one device's K1 rhs), one rhs of 3D Taylor-Green on
+            4x3x3 distorted hexes (the gather DSS and its interface-row
+            psum, job_rhs), the moving cylinder on 8^2 ngl=3 through
+            _start_solver_sharded_ibm (3 steps, cd too); (b) the flagship
+            (24^3 ngl=4, f32, CG rtol 1e-6) in 2 slabs of 12x24x24, 1
+            accepted step from phase 5's state with dt0 1e-3, against the
+            same step on one device: s/step, attempts (equal), CG
+            iterations per solve on each rank, peak memory per rank, staged
+            bytes per apply, fields within SHARDED_F32_LIMIT; (c) on every
+            rank of every run K1's launches == the rank's own operator
+            applications, and every rank took the same steps and CG
+            iterations
 
 The last three lines are the card's name and power limit (nvidia-smi), the
 record of the four kernels as JSON (K1's also with `launches_by_path`: its
@@ -193,7 +214,9 @@ launches in the main path's run and in each later path's, each counted from
 0: the global_direct CG rhs, global_ops, the gmres phase's GMRES solves,
 the cli phase's production run (a) and its -test kle solve (d), the
 unstructured phase's gmsh parts (a)-(c) and (f), which must be 0, and its
-box-mesh sumfact rhs (d), the ibm phase's (a)-(d), `ibm_static` 0; and
+box-mesh sumfact rhs (d), the ibm phase's (a)-(d), `ibm_static` 0, the
+sharded phase's runs summed over their ranks, `sharded_overlap` and
+`sharded_hex` 0 (the plain DSS route, a gmsh mesh); and
 `dss_pass_launches_by_path`: its DSS pass
 launched alone in (d)) and the result line {"ok": true, "device": {...}}.
 A kernel's `bound_ms` is the larger of the
@@ -349,6 +372,18 @@ IBM_REF = {
 # cuts: <= 6.9e-7) is held to IBM_BODY_RES_LIMIT, 14x that, rounded up
 IBM_FORCE_LIMIT = 1e-3
 IBM_BODY_RES_LIMIT = 1e-5
+# the sharded phase: ranks on the one card, and the flagship's f32 field gap
+# between its sharded step and its one-device step (see SHARDED_F32_LIMIT)
+SHARDED_NDEV = 2
+# The sharded flagship step sums in another order than the one-device step
+# (the slab exchange, the psums), so its f32 CG stops at other iterates
+# within rtol 1e-6. `python -m pynama_tpu_torch.exp.sharded_f32_gap --nelem
+# 6 8 --device cpu` (CPU, f32, the flagship's physics, 1 step from 2 steps' state on 2
+# ranks) measured a max-norm gap of 5.1e-7 / 1.5e-6 (vorticity / velocity)
+# at 6^3 and 4.8e-7 / 1.4e-6 at 8^3. The gap for a given residual grows at
+# most with the condition number, ~h^-2: 9x from 8^3 to 24^3, ~1.3e-5. The
+# limit keeps ~7x over that; a wrong plane exchange or psum is O(1).
+SHARDED_F32_LIMIT = 1e-4
 # the decomposition drivers: the flagship shape, depth cut to 200 applies
 # per chain and 3 rounds
 DRIVER_ARGS = ["24", "4", "--nit", "200", "--rounds", "3"]
@@ -2932,6 +2967,225 @@ def phase_ibm(torch, dev):
     check(bitwise, "ibm (e): two spread_S calls differ")
     return k1
 
+def _k1_expected(stats, is_ns, accepts=0, fused=True):
+    """K1's launches on one rank, from its CG log: per masked solve Rw,
+    apply_K(vc) and the A0 residual (3) plus its loop applications; per
+    KLE solve of a no-slip problem the curl between the stages; per rhs
+    srt, div_srt and curl (3); per IBM accept (`accepts`) the curl after
+    the correction (1). 0 on the plain route (fused=False)."""
+    if not fused:
+        return 0
+    n = len(stats["cg_iters"])
+    n_kle = n // 2 if is_ns else n
+    return (3 * n + (n_kle if is_ns else 0) + 3 * (n_kle - accepts)
+            + accepts + sum(stats["cg_applies"]))
+
+
+def _rank_rows(stats, expected):
+    """Per-rank record of a sharded run, K1 against `expected`(stats)."""
+    return [{"rank": s["rank"], "backend": s["backend"],
+             "accepted": len(s["accepted"]), "solves": len(s["cg_iters"]),
+             "cg_iters": sum(s["cg_iters"]), "k1_launches": s["k1_launches"],
+             "k1_expected": expected(s), "staged_bytes": s["staged_bytes"],
+             "peak_mem_bytes": s["peak_mem_bytes"]} for s in stats]
+
+
+def _check_ranks(label, rows, stats):
+    check(len(rows) == SHARDED_NDEV, f"sharded {label}: {len(rows)} ranks")
+    check(all(r["backend"] == "gloo staged through host" for r in rows),
+          f"sharded {label}: backend {[r['backend'] for r in rows]}")
+    check(all(s["cg_iters"] == stats[0]["cg_iters"]
+              and s["accepted"] == stats[0]["accepted"] for s in stats),
+          f"sharded {label}: the ranks left lockstep")
+    check(all(r["k1_launches"] == r["k1_expected"] for r in rows),
+          f"sharded {label}: K1 launches {[r['k1_launches'] for r in rows]}"
+          f", the ranks made {[r['k1_expected'] for r in rows]} "
+          "applications")
+
+
+def phase_sharded(torch, dev, flagship, t_flagship):
+    """(a) f64 parity of 2 ranks on the card (gloo staged through host
+    buffers) against one device on the card; (b) the flagship split into
+    2 slabs, 1 step from phase 5's state; (c) each rank's K1 launches
+    against its applications. Returns K1's launches by path, summed over
+    the ranks.
+
+    Two ranks share the one card by time-slicing it, and every staged
+    collective waits for its rank's queue: a sharded CG iteration took ~8
+    ms on an H100 80GB HBM3 at 700 W against ~0.5 ms on one device, so
+    the cases are sized by their CG iterations: the cavity 2x2x2 at CG
+    rtol 1e-10 (3 steps, ~4,800 iterations; 1 step under FDM), the
+    overlapped DSS one rhs, the cylinder at rtol 1e-10 (~2,000)."""
+    from pynama_tpu_torch.engine.local_engine import rhs_local
+    from pynama_tpu_torch.parallel.sharded_engine import (
+        job_rhs, job_rhs_overlap_pair, run_sharded)
+    from pynama_tpu_torch.run_case import make_problem
+
+    t_phase = time.perf_counter()
+    k1 = {}
+    opts = dict(solver="cg", cg_rtol=1e-10, cg_maxiter=4000)
+    cavity = cavity_config((2, 2, 2), 3, 1.0, 0.02, [1.0, 0, 0], 3, 1.0)
+    cases = [
+        ("cavity", "cavity3d 2^3 ngl=3", cavity, opts),
+        ("fdm", "cavity3d 2^3 ngl=3 pc=fdm, 1 step",
+         dict(cavity, **{"time-solver": dict(cavity["time-solver"],
+                                             **{"max-steps": 1})}),
+         dict(opts, pc="fdm")),
+        ("ibm_dynamic", "moving cylinder 8^2 ngl=3, _start_solver_sharded_ibm",
+         ibm_cylinder_config((8, 8), "dynamic", 3), opts)]
+    for key, label, cfg, o in cases:
+        out = {}
+        for ndev in (1, SHARDED_NDEV):
+            p = make_problem(cfg, device=dev, dtype=torch.float64,
+                             ndev=ndev, **o)
+            p.setUp()
+            t0 = time.perf_counter()
+            t_end, steps = p.start_solver(atol=1e-4, rtol=1e-4, dt0=1e-3)
+            torch.cuda.synchronize()
+            out[ndev] = dict(vort=p.vort.cpu().numpy(),
+                             vel=p.vel.cpu().numpy(), t=t_end, steps=steps,
+                             seconds=time.perf_counter() - t0,
+                             stats=getattr(p, "rank_stats", None),
+                             cd=list(getattr(p, "history", {}).get("cd",
+                                                                   [])))
+            is_ns = p.engine_ops.is_ns
+            del p
+        ref, two = out[1], out[SHARDED_NDEV]
+        stats = two["stats"]
+        ibm = "bodies" in cfg
+        rows = _rank_rows(stats, lambda s: _k1_expected(
+            s, is_ns, len(s["accepted"]) + 1 if ibm else 0))
+        rel = {k: _rel(two[k], ref[k]) for k in ("vort", "vel")}
+        extra = {"cd_rel": _rel(np.asarray(two["cd"]), np.asarray(ref["cd"]))
+                 } if ibm else {}
+        emit("sharded_a", case=label, ndev=SHARDED_NDEV, rel_err=rel,
+             limit=PARITY_LIMIT, steps=[ref["steps"], two["steps"]],
+             t=[ref["t"], two["t"]],
+             seconds=[ref["seconds"], two["seconds"]], ranks=rows, **extra)
+        check(two["steps"] == ref["steps"] == cfg["time-solver"][
+            "max-steps"] and two["t"] == ref["t"],
+            f"sharded {label}: steps/t {two['steps']} {two['t']}, "
+            f"one device {ref['steps']} {ref['t']}")
+        check(all(v <= PARITY_LIMIT for v in rel.values()),
+              f"sharded {label}: {rel} > {PARITY_LIMIT}")
+        check(not ibm or extra["cd_rel"] <= PARITY_LIMIT,
+              f"sharded {label}: cd {extra.get('cd_rel')}")
+        _check_ranks(label, rows, stats)
+        k1[f"sharded_{key}"] = sum(r["k1_launches"] for r in rows)
+
+    # the overlapped DSS (plain route): one rhs with overlap_dss off and
+    # on, against one device's K1 rhs
+    p = make_problem(cavity, device=dev, dtype=torch.float64, fused=False,
+                     **opts)
+    p.setUp()
+    rng = np.random.default_rng(7)
+    vort = rng.standard_normal((p.mesh.n_nodes, p.dim_w))
+    vel = np.zeros((p.mesh.n_nodes, p.dim))
+    ref = make_problem(cavity, device=dev, dtype=torch.float64, **opts)
+    ref.setUp()
+    f_ref, _ = rhs_local(ref.engine_ops, 0.1, ref.to_local(vort),
+                         ref.to_local(vel))
+    f_ref = ref.to_global(f_ref, ref.dim_w)
+    res = run_sharded(p, SHARDED_NDEV, job_rhs_overlap_pair,
+                      (0.1, vort, vel))
+    got = res[0]["fields"]
+    stats = [r["stats"] for r in res]
+    rows = _rank_rows(stats, lambda s: 0)
+    rel = {"overlapped_vs_plain": _rel(got["overlapped"]["f"],
+                                       got["plain"]["f"]),
+           "overlapped_vs_one_device": _rel(got["overlapped"]["f"], f_ref)}
+    emit("sharded_a", case="cavity3d 2^3 ngl=3 overlap_dss, one rhs (plain "
+         "DSS route)", ndev=SHARDED_NDEV, rel_err=rel, limit=PARITY_LIMIT,
+         bitwise=bool(np.array_equal(got["overlapped"]["f"],
+                                     got["plain"]["f"])), ranks=rows)
+    check(all(v <= PARITY_LIMIT for v in rel.values()),
+          f"sharded overlap: {rel} > {PARITY_LIMIT}")
+    _check_ranks("overlap", rows, stats)
+    k1["sharded_overlap"] = sum(r["k1_launches"] for r in rows)
+    del p, ref
+
+    # 3D Taylor-Green on 4x3x3 distorted hexes: one rhs on the gather DSS
+    tmp = tempfile.mkdtemp(prefix="sharded-")
+    try:
+        cfg = gmsh_tg_config(write_hex_msh(os.path.join(tmp, "hex.msh"), 4,
+                                           3, 3, MESH_DISTORT),
+                             "taylor_green3d", 3, 1)
+        p = make_problem(cfg, device=dev, dtype=torch.float64,
+                         **dict(opts, cg_rtol=1e-13))
+        p.setUp()
+        rng = np.random.default_rng(0)
+        vort = rng.standard_normal((p.mesh.n_nodes, p.dim_w))
+        vel = np.zeros((p.mesh.n_nodes, p.dim))
+        f_ref, _ = rhs_local(p.engine_ops, p.start_time, p.to_local(vort),
+                             p.to_local(vel))
+        f_ref = p.to_global(f_ref, p.dim_w)
+        res = run_sharded(p, SHARDED_NDEV, job_rhs, (p.start_time, vort, vel))
+        stats = [r["stats"] for r in res]
+        rows = _rank_rows(stats, lambda s: 0)
+        rel = _rel(res[0]["fields"]["f"], f_ref)
+        emit("sharded_a", case="taylor-green3d 4x3x3 distorted hexes ngl=3, "
+             "gather DSS, one rhs", ndev=SHARDED_NDEV, rel_err=rel,
+             limit=PARITY_LIMIT, ranks=rows,
+             dss_pass_launches=[s["dss_pass_launches"] for s in stats])
+        check(rel <= PARITY_LIMIT, f"sharded hexes: {rel} > {PARITY_LIMIT}")
+        check(all(s["dss_pass_launches"] == 0 for s in stats),
+              "sharded hexes: the DSS pass ran on a gmsh mesh")
+        _check_ranks("hexes", rows, stats)
+        k1["sharded_hex"] = sum(r["k1_launches"] for r in rows)
+        del p
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (b) the flagship in 2 slabs of 12x24x24, 1 step from phase 5's state
+    p = flagship
+    state = (p.vort, p.vel, p.start_time, p.max_steps)
+    out = {}
+    for ndev in (1, SHARDED_NDEV):
+        p.vort, p.vel = state[:2]
+        p.start_time, p.max_steps = t_flagship, 1
+        p.opts["ndev"] = ndev
+        p.cg_log = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        t_end, steps = p.start_solver(dt0=1e-3)
+        torch.cuda.synchronize()
+        out[ndev] = dict(s=time.perf_counter() - t0, t=t_end, steps=steps,
+                         vort=p.vort.cpu().numpy(), vel=p.vel.cpu().numpy(),
+                         attempts=len(p.cg_log) // 16,
+                         iters=[int(i) for i, _ in p.cg_log],
+                         stats=getattr(p, "rank_stats", None))
+    p.vort, p.vel, p.start_time, p.max_steps = state
+    p.opts.pop("ndev")
+    one, two = out[1], out[SHARDED_NDEV]
+    stats = two["stats"]
+    rows = _rank_rows(stats, lambda s: _k1_expected(s, True))
+    ops = p.engine_ops
+    plane_bytes = 4 * int(np.prod(ops.nelem[1:])) * ops.lay_v.plane_cols * 4
+    gap = {k: _rel(two[k], one[k]) for k in ("vort", "vel")}
+    emit("sharded_b", config="cavity3d 24^3 ngl=4 f32 cg_rtol=1e-6, 2 slabs "
+         "of 12x24x24 on one card", t_start=t_flagship,
+         s_per_step=[one["s"], two["s"]], steps=[one["steps"], two["steps"]],
+         t=[one["t"], two["t"]], attempts=[one["attempts"], two["attempts"]],
+         cg_iters_single=one["iters"],
+         cg_iters_by_rank=[s["cg_iters"] for s in stats],
+         gap=gap, limit=SHARDED_F32_LIMIT, ranks=rows,
+         staged_bytes_per_apply=[r["staged_bytes"] / max(r["k1_launches"], 1)
+                                 for r in rows],
+         plane_bytes_per_apply=plane_bytes,
+         phase_s=time.perf_counter() - t_phase)
+    check(one["steps"] == two["steps"] == 1,
+          f"sharded flagship: steps {one['steps']} {two['steps']}")
+    check(one["attempts"] == two["attempts"],
+          f"sharded flagship: attempts {one['attempts']} one device, "
+          f"{two['attempts']} sharded")
+    check(all(v <= SHARDED_F32_LIMIT for v in gap.values()),
+          f"sharded flagship: gap {gap} > {SHARDED_F32_LIMIT}")
+    _check_ranks("flagship", rows, stats)
+    k1["sharded_flagship"] = sum(r["k1_launches"] for r in rows)
+    return k1
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2962,6 +3216,7 @@ def main() -> int:
     k1_more, dss_paths = phase_unstructured(torch, dev, problem, t_main)
     k1_paths.update(k1_more)
     k1_paths.update(phase_ibm(torch, dev))
+    k1_paths.update(phase_sharded(torch, dev, problem, t_main))
 
     record["launches"] = launches
     record["launches_by_path"] = k1_paths

@@ -20,8 +20,13 @@ Drag/lift histories from the virtual flux go to <case>.yaml
 The fields stay on the device through the whole loop: the RK stages go
 through `Problem.rhs`, whose engine route converts between the layouts with
 device gathers, and only the force history's few scalars come to the host.
-Sharded IBM runs (`ibm/sharded.py`, the JAX package's
-`_start_solver_sharded_ibm`) wait for ROADMAP Queue A item 14.
+
+With `ndev=N` (N > 1) the loop runs sharded (`_start_solver_sharded_ibm`,
+`ibm/sharded.py`): the RK step, the KLE solve, the correction and the curl
+run on N ranks' slabs of the element-local engine (spawned, or a process
+group's ranks in place), and rank 0 sends each accepted step's flux (on
+force steps) and fields (when saved or a post_step is attached) to the
+caller, which keeps the force history.
 """
 from __future__ import annotations
 
@@ -124,10 +129,13 @@ class ImmersedBoundaryStatic(Problem):
     # -------------------------------------------------------------- running
     def start_solver(self, post_step=None, dt0=None, atol=1e-4, rtol=1e-4,
                      tableau="5bs"):
-        if int(self.opts.get("ndev", 1)) > 1:
-            raise NotImplementedError(
-                "sharded IBM runs are not ported yet (ROADMAP Queue A item "
-                "14: ibm/sharded.py and _start_solver_sharded_ibm)")
+        ndev = int(self.opts.get("ndev", 1))
+        if ndev > 1:
+            if self.engine_ops is None:
+                raise ValueError("ndev>1 requires the element-local engine "
+                                 "(box mesh + iterative solver)")
+            return self._start_solver_sharded_ibm(ndev, post_step, dt0, atol,
+                                                  rtol, tableau)
         if dt0 is None:
             dt0 = (self.end_time - self.start_time) / (10 * self.max_steps)
         save_every = int(self.config.get("save-n-steps", 10))
@@ -197,6 +205,94 @@ class ImmersedBoundaryStatic(Problem):
 
     def _per_step_correction(self, vel, t):
         return self.velocity_correction(vel, t)
+
+    # ------------------------------------------------------ sharded running
+    def _start_solver_sharded_ibm(self, ndev, post_step=None, dt0=None,
+                                  atol=1e-4, rtol=1e-4, tableau="5bs"):
+        """Domain-decomposed IBM transient (`-ndev N`): the RK step, KLE
+        solve, velocity correction and curl run on N ranks
+        (`job_ibm_transient`); the caller gets each accepted step's flux and,
+        when it saves or has a post_step, its gathered fields, and keeps the
+        force history as the JAX package's sharded loop does (its cd_phys
+        spreads the flux through the tables of the body at t0)."""
+        from pynama_tpu_torch.parallel.sharded_engine import run_sharded
+
+        if dt0 is None:
+            dt0 = (self.end_time - self.start_time) / (10 * self.max_steps)
+        save_every = int(self.config.get("save-n-steps", 10))
+        dyn = self.body.is_moving
+        ctx = dict(
+            vort=host_array(self.vort), vel=host_array(self.vel),
+            t0=self.start_time, t_end=self.end_time,
+            max_steps=self.max_steps, dt0=float(dt0), atol=atol, rtol=rtol,
+            tableau=tableau, save_every=save_every,
+            force_every=max(1, save_every // 10),
+            want_fields=post_step is not None,
+            save=self.viewer is not None, dynamic=dyn,
+            scale=float(self.ibm_ops.dl * self.ibm_ops.h))
+        if dyn:
+            ops = self.ibm_ops
+            ctx.update(body=self.body, axes=[host_array(a) for a in ops.axes],
+                       h=float(ops.h), dl=float(ops.dl), kernel=ops.kernel,
+                       kside=ops.kside, corr_rtol=self._corr_rtol)
+        else:
+            ctx.update(nodes_tab=host_array(self.nodes_tab),
+                       w_tab=host_array(self.w_tab),
+                       chol=host_array(self.chol),
+                       body_vel=np.asarray(self.body.velocities()))
+
+        hist = {"times": [], "cd": [], "cl": [], "dt": [], "steps": [],
+                "elapsedTimes": [], "cd_phys": [], "cl_phys": []}
+
+        def on_message(msg):
+            if msg[0] == "warn":
+                logger.warning("%s", msg[1])
+                return
+            _, step, t, dt, flux, vort, vel, elapsed = msg
+            logger.info("Converged: Step %4d | Time %.4e | DT: %.4e",
+                        step, t, dt)
+            if self.viewer is not None and step % save_every == 0:
+                if dyn:
+                    self.body.update_parameters(t)
+                    self._xy = self._field(self.body.coordinates())
+                self._save_step(step, t, vort, vel)
+            if flux is not None:
+                denom = 0.5 * self.U_ref**2
+                fx, fy = self.body.compute_force(flux, denom * dt)
+                corr = I.spread_S(self.ibm_ops, self.nodes_tab, self.w_tab,
+                                  self._field(flux), self.mesh.n_nodes,
+                                  self.plan)
+                cphys = host_array((corr * self.operator.weight).sum(
+                    dim=0)) / (dt * denom * self.body.ref_length)
+                hist["times"].append(float(t))
+                hist["cd"].append(fx)
+                hist["cl"].append(fy)
+                hist["cd_phys"].append(float(cphys[0]))
+                hist["cl_phys"].append(float(cphys[1]))
+                hist["dt"].append(float(dt))
+                hist["steps"].append(step)
+                hist["elapsedTimes"].append(elapsed)
+                if self.viewer is not None:
+                    self.viewer.write_yaml(self.case_name, {
+                        "dh": self.h, "dl": self.body.dl,
+                        "lagPoints": self.body.n_nodes,
+                        "eulerNodes": self.mesh.n_nodes * self.dim_w,
+                        "ngl": self.ngl, **hist})
+            if post_step is not None:
+                post_step(step, t, dt, vort, vel)
+
+        res = run_sharded(
+            self, ndev, job_ibm_transient, (ctx,),
+            overlap_dss=bool(self.opts.get("overlap_dss", False)),
+            on_message=on_message)
+        out = res[0]["fields"]
+        self.rank_stats = [r["stats"] for r in res]
+        self.vort, self.vel = self._field(out["vort"]), self._field(out["vel"])
+        if dyn:
+            self._flux = self._field(out["flux"])
+            self.corr_log = list(out["corr_log"])
+        self.history = hist
+        return out["t"], out["steps"]
 
     def _save_step(self, step, t, vort, vel):
         nodes = host_array(self.nodes_tab)
@@ -269,3 +365,92 @@ class ImmersedBoundaryDynamic(ImmersedBoundaryStatic):
                                                           self._xy)
             self.plan = I.spread_plan(self.nodes_tab)
         super()._save_step(step, t, vort, vel)
+
+
+def job_ibm_transient(se, ctx: dict) -> dict:
+    """One rank's sharded IBM loop (see `_start_solver_sharded_ibm`). Every
+    rank runs the same host loop on psum'd scalars; each accepted step
+    posts ("step", step, t, dt, flux or None, vort or None, vel or None,
+    seconds) and a stalled moving-body correction ("warn", text). Fields t,
+    steps, vort, vel, flux and corr_log at the end."""
+    from pynama_tpu_torch.engine import local_engine as E
+    from pynama_tpu_torch.ibm import sharded as IS
+
+    ops, comm = se.ops_s, se.comm
+    dev, dt_ = se.device, se.dtype
+    f = lambda a: torch.as_tensor(np.asarray(a), dtype=dt_, device=dev)
+    scale, dyn = ctx["scale"], ctx["dynamic"]
+    nloc = ops.lay_v.n_cells * ops.nn          # this rank's slots
+    corr_log = []
+    if not dyn:
+        slots, gw, sw = (a[se.rank] for a in IS.build_ibm_shard_tables(
+            se.mesh_cells, ctx["nodes_tab"], ctx["w_tab"], se.ndev))
+        slots = torch.as_tensor(slots, device=dev)
+        gw, sw, chol = f(gw), f(sw), f(ctx["chol"])
+        body_vel = f(ctx["body_vel"])
+        plan = I.spread_plan(slots)
+
+        def correct(t, vel):
+            return IS.correction_local(slots, gw, sw, chol, scale, vel,
+                                       body_vel, comm, plan)
+    else:
+        body = ctx["body"]
+        iops = I.IBMOps(axes=tuple(f(a) for a in ctx["axes"]),
+                        h=f(ctx["h"]), dl=f(ctx["dl"]),
+                        kernel=ctx["kernel"], kside=ctx["kside"])
+        slots_of, counts = IS.build_node_slot_map(se.mesh_cells, se.ndev)
+        slots_of = torch.as_tensor(slots_of, device=dev)
+        counts = f(counts)
+        rtol_c = ctx["corr_rtol"]
+        flux_rep = torch.zeros((body.n_nodes, ops.dim), dtype=dt_,
+                               device=dev)
+
+        def correct(t, vel):
+            nonlocal flux_rep
+            body.update_parameters(t)
+            nodes, w = I.support_tables(iops, f(body.coordinates()))
+            sl, g, s = IS.dynamic_tables_local(slots_of, counts, nodes, w,
+                                               nloc, se.rank)
+            vel, flux_rep, (iters, relres) = IS.correction_cg_local(
+                sl, g, s, scale, vel, f(body.velocities()), flux_rep, comm,
+                rtol=rtol_c)
+            iters, relres = int(iters), float(relres)
+            corr_log.append((iters, relres))
+            if relres > 10 * rtol_c:
+                comm.post(("warn", f"sharded IBM correction CG stalled: "
+                                   f"{iters} iters, relres {relres:.2e} at "
+                                   f"t={t:g}"))
+            return vel, flux_rep
+
+    def accept(t, vort, vel):
+        """KLE solve + velocity correction + curl on this rank's slab."""
+        vort, vel = E.solve_kle_local(ops, vort, vel, t, se.cg_log)
+        vel, flux = correct(t, vel)
+        return E.curl(ops, vel), vel, flux
+
+    stepper = AdaptiveStepper(
+        None, tableau=ctx["tableau"], attempt=se.make_attempt(
+            ctx["tableau"], ctx["atol"], ctx["rtol"]))
+    stepper.dt = ctx["dt0"]
+    t = ctx["t0"]
+    vort, vel = se.shard_state(ctx["vort"], ctx["vel"])
+    vort, vel, flux = accept(t, vort, vel)
+    timer = Timer()
+    step = 0
+    while step < ctx["max_steps"] and t < ctx["t_end"] - 1e-14:
+        timer.tic()
+        t, vort, vel = stepper.step(t, vort, vel, t_max=ctx["t_end"])
+        step += 1
+        vort, vel, flux = accept(t, vort, vel)
+        dt = stepper.dt
+        se.accepted.append((step, t, dt))
+        w = v = None
+        if ctx["want_fields"] or (ctx["save"]
+                                  and step % ctx["save_every"] == 0):
+            w = se.gather_state(vort, ops.dim_w)
+            v = se.gather_state(vel, ops.dim)
+        fl = flux.cpu().numpy() if step % ctx["force_every"] == 0 else None
+        comm.post(("step", step, t, dt, fl, w, v, timer.toc()))
+    return se.result(t=t, steps=step, vort=se.gather_state(vort, ops.dim_w),
+                     vel=se.gather_state(vel, ops.dim),
+                     flux=flux.cpu().numpy(), corr_log=corr_log)

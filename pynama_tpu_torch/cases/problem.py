@@ -35,8 +35,15 @@ takes too when asked), and the global layout takes the per-element
 matrices as they are.
 
 IBM bodies are the subclasses in `cases/ibm.py` (`run_case.make_problem`
-picks them for a config with `bodies`). Left out until ROADMAP Queue A
-item 14: sharded runs (`ndev > 1`), the IBM ones included.
+picks them for a config with `bodies`).
+
+`ndev=N` (N > 1) runs the transient sharded over N ranks
+(`parallel/sharded_engine.py`): in a plain process `start_solver` spawns N
+ranks and stores the gathered fields they send back; on the ranks of a
+process group of N that is already up (`parallel/multihost.py`) it runs in
+place on every rank. `overlap_dss=True` overlaps the plain box DSS's plane
+exchange with its bulk passes. `fused_block=` is refused, as the CLI
+refuses `-fused-block`: the port's kernel takes every shape.
 """
 from __future__ import annotations
 
@@ -67,6 +74,12 @@ logger = logging.getLogger("pynama_tpu_torch.problem")
 
 #: the solver names `Problem(solver=...)` takes
 SOLVERS = ("auto", "direct", "cg", "gmres")
+
+#: why `Problem(fused_block=N)` raises (the CLI's -fused-block repeats it)
+FUSED_BLOCK_LEFT_OUT = (
+    "-fused-block is an option the port leaves out (ROADMAP, \"Options the "
+    "port leaves out\": the Mosaic block probing of _pick_block/probe_block "
+    "has no Hopper meaning; the CUDA kernel takes every shape)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,6 +129,8 @@ class Problem:
     """A configured flow case (reference BaseProblem)."""
 
     def __init__(self, config: dict, *, device, dtype=None, **kwargs):
+        if kwargs.get("fused_block") is not None:
+            raise NotImplementedError(FUSED_BLOCK_LEFT_OUT)
         self.config = config
         self.case_name = config.get("name", "case")
         self.device = torch.device(device)
@@ -396,12 +411,13 @@ class Problem:
         global layout through `rhs`. Returns (t, accepted_steps)."""
         if dt0 is None:
             dt0 = (self.end_time - self.start_time) / (10 * self.max_steps)
-        if int(self.opts.get("ndev", 1)) > 1:
+        ndev = int(self.opts.get("ndev", 1))
+        if ndev > 1:
             if self.engine_ops is None:
                 raise ValueError("ndev>1 requires the element-local engine "
                                  "(box mesh + iterative solver)")
-            raise NotImplementedError("sharded runs are not ported yet "
-                                      "(ROADMAP Queue A item 14)")
+            return self._start_solver_sharded(post_step, dt0, atol, rtol,
+                                              tableau, ndev)
         if self.engine_ops is not None:
             return self._start_solver_local(post_step, dt0, atol, rtol,
                                             tableau)
@@ -420,6 +436,39 @@ class Problem:
             accept_fn=lambda t, w: self.bc.apply_vorticity(w, t, self.nu))
         self.vort, self.vel = vort, vel
         return t, steps
+
+    def _start_solver_sharded(self, post_step, dt0, atol, rtol, tableau,
+                              ndev):
+        """The transient sharded over `ndev` ranks (spawned here, or this
+        process group's ranks in place). The state stays sharded for the
+        whole run; fields are gathered per accepted step only when
+        post_step is attached, and at the end. Each rank's record (accepted
+        steps, CG counts, launches) is kept in `rank_stats`, and rank 0's
+        CG log extends `cg_log` when that is a list."""
+        from pynama_tpu_torch.parallel.sharded_engine import (job_transient,
+                                                              run_sharded)
+
+        def on_message(msg):
+            _, step, t, dt, vort, vel = msg
+            logger.info("Converged: Step %4d | Time %.4e | dt %.2e",
+                        step, t, dt)
+            if post_step is not None:
+                post_step(step, t, dt, vort, vel)
+
+        res = run_sharded(
+            self, ndev, job_transient,
+            (host_array(self.vort), host_array(self.vel), self.start_time,
+             self.end_time, self.max_steps, dt0, atol, rtol, tableau,
+             post_step is not None),
+            overlap_dss=bool(self.opts.get("overlap_dss", False)),
+            on_message=on_message)
+        out = res[0]["fields"]
+        self.rank_stats = [r["stats"] for r in res]
+        if self.cg_log is not None:
+            st = self.rank_stats[0]
+            self.cg_log.extend(zip(st["cg_iters"], st["cg_applies"]))
+        self.vort, self.vel = self._field(out["vort"]), self._field(out["vel"])
+        return out["t"], out["steps"]
 
     def _start_solver_local(self, post_step, dt0, atol, rtol,
                             tableau="5bs"):

@@ -42,8 +42,16 @@ free-slip stage. Constant sides are merged in declaration order into the
 constant buffers; analytic-function sides are scattered on top of them,
 each in its turn, so a function side wins a shared corner.
 
-Left out until its ROADMAP item: sharding (item 14). The Schwarz
-preconditioner is an option the port leaves out.
+Sharded runs (`parallel/sharded_engine.py`) give each rank an EngineOps
+of its own slab with a `comm` (`parallel/comm.py::SlabComm`, the
+counterpart of the JAX package's `axis_name`): the dots of the Krylov
+solves and the RK error norm are psums, the plain DSS exchanges planes
+(or interface rows) with the other ranks, and on a box mesh the fused
+kernel's raw axis-0 planes `bnd` go to the neighbour ranks and theirs are
+added into `y`'s first and last planes. With `overlap_dss` the plain box
+DSS is `ops/local.py::dss_overlapped`. `comm=None` is one device.
+
+The Schwarz preconditioner is an option the port leaves out.
 """
 from __future__ import annotations
 
@@ -59,7 +67,8 @@ from pynama_tpu_torch.ops import local as L
 from pynama_tpu_torch.ops import sumfact as S
 from pynama_tpu_torch.ops.fused import dss_pass, fused_apply
 from pynama_tpu_torch.solver.cg import pcg
-from pynama_tpu_torch.solver.fdm import FDMOps, build_fdm, fdm_apply
+from pynama_tpu_torch.solver.fdm import (FDMOps, SlabFDM, build_fdm,
+                                         fdm_apply, fdm_apply_slab)
 from pynama_tpu_torch.solver.gmres import gmres
 
 logger = logging.getLogger("pynama_tpu_torch.engine")
@@ -141,6 +150,12 @@ class EngineOps:
     fused: bool = True
     #: sum-factorized K (ops/sumfact.py) in place of KT; None -> dense KT
     sumfact: Optional[S.SumFactK] = None
+    #: this rank's collectives when sharded (parallel/comm.py SlabComm);
+    #: None -> one device
+    comm: Optional[object] = None
+    #: overlap the plain box DSS's plane exchange with its bulk passes
+    #: (ops/local.py dss_overlapped); only read when sharded
+    overlap_dss: bool = False
 
     @property
     def nn(self):
@@ -290,14 +305,18 @@ def ops_from_numpy(arrays: dict, *, ngl, nelem, dim, dim_w, dim_s, is_ns,
                    cg_rtol, cg_atol, cg_maxiter, device, dtype,
                    func_sides=(), pc="jacobi", fdm_main=None,
                    fdm_fs=None, krylov="cg", fused=True,
-                   structured=True) -> EngineOps:
+                   structured=True, comm=None,
+                   overlap_dss=False) -> EngineOps:
     """EngineOps from numpy arrays keyed by ARRAY_FIELDS, plus
     UNSTRUCTURED_FIELDS when `structured` is False and SUMFACT_FIELDS when
     K is sum-factorized (the fields of the JAX package's EngineOps carry
     over one to one). Float arrays are cast to `dtype`, index arrays to
     int64, scalars to Python floats. `func_sides` holds objects with the
     FuncSide fields whose arrays numpy can read (either package's
-    FuncSide); `fdm_main`/`fdm_fs` are the port's FDMOps on `device`."""
+    FuncSide); `fdm_main`/`fdm_fs` are the port's FDMOps (or, on a rank's
+    slab, SlabFDM) on `device`. A sharded rank's arrays may hold
+    "lay_{v,w,s}.iface" (the partition-interface rows); `comm` and
+    `overlap_dss` go to the EngineOps as they are."""
     def f(key):
         return torch.as_tensor(np.array(arrays[key]), dtype=dtype,
                                device=device).contiguous()
@@ -313,6 +332,8 @@ def ops_from_numpy(arrays: dict, *, ngl, nelem, dim, dim_w, dim_s, is_ns,
             incidence=idx(arrays[f"lay_{fam}.incidence"]),
             cell_nodes=idx(arrays[f"lay_{fam}.cell_nodes"]),
             structured=False, mesh_dim=int(dim))
+        if f"lay_{fam}.iface" in arrays:
+            more["iface"] = idx(arrays[f"lay_{fam}.iface"])
         return L.LocalLayout(
             perms=tuple(idx(p) for p in perms),
             inv_mult=f(f"lay_{fam}.inv_mult"), ngl=int(ngl), nelem=nelem,
@@ -345,7 +366,32 @@ def ops_from_numpy(arrays: dict, *, ngl, nelem, dim, dim_w, dim_s, is_ns,
         dim_s=int(dim_s), is_ns=bool(is_ns), cg_rtol=float(cg_rtol),
         cg_atol=float(cg_atol), cg_maxiter=int(cg_maxiter),
         func_sides=fsides, pc=pc, fdm_main=fdm_main, fdm_fs=fdm_fs,
-        krylov=krylov, fused=bool(fused), sumfact=sumfact)
+        krylov=krylov, fused=bool(fused), sumfact=sumfact, comm=comm,
+        overlap_dss=bool(overlap_dss))
+
+
+def ops_to_numpy(ops: EngineOps) -> dict:
+    """The inverse of `ops_from_numpy`'s array part: every array field of
+    `ops` as a host numpy array in its own dtype, keyed as ops_from_numpy
+    takes them (ARRAY_FIELDS, UNSTRUCTURED_FIELDS on an unstructured mesh,
+    SUMFACT_FIELDS with a sum-factorized K)."""
+    keys = ARRAY_FIELDS
+    if not ops.lay_v.structured:
+        keys = keys + UNSTRUCTURED_FIELDS
+    if ops.sumfact is not None:
+        keys = keys + SUMFACT_FIELDS
+    out = {}
+    for key in keys:
+        obj = ops
+        for part in key.split("."):
+            obj = getattr(obj, part)
+        if key.endswith(".perms"):
+            lay = getattr(ops, key.split(".")[0])
+            obj = torch.stack(obj) if obj else torch.zeros(
+                (0, lay.nnc), dtype=torch.int64)
+        out[key] = obj.detach().cpu().numpy() \
+            if isinstance(obj, torch.Tensor) else np.asarray(obj)
+    return out
 
 
 def build_engine(mesh, bc, em_K, em_Rw, op_curl, op_srt, op_div, op_weight,
@@ -456,35 +502,79 @@ def apply_tangential_bc(ops: EngineOps, vel, time):
 # operator applications
 # ---------------------------------------------------------------------------
 
+def _sharded(ops: EngineOps) -> bool:
+    return ops.comm is not None and ops.comm.size > 1
+
+
 def _dot_v(ops: EngineOps):
     inv = ops.lay_v.inv_mult
+    sharded = _sharded(ops)
 
     def dot(a, b):
-        return (a * b * inv).sum()
+        s = (a * b * inv).sum()
+        return ops.comm.psum(s) if sharded else s
 
     return dot
 
 
+def _dots_v(ops: EngineOps):
+    """pcg's `dots`: several `_dot_v` values, one psum for all of them
+    when sharded."""
+    inv = ops.lay_v.inv_mult
+
+    def dots(pairs):
+        s = [(a * b * inv).sum() for a, b in pairs]
+        return list(ops.comm.psum(torch.stack(s))) if _sharded(ops) else s
+
+    return dots
+
+
+def _dss(ops: EngineOps, lay, t):
+    """Plain DSS dispatch: the overlapped variant when sharded with
+    overlap_dss on a box mesh."""
+    if _sharded(ops) and ops.overlap_dss and lay.structured:
+        return L.dss_overlapped(lay, L.make_plane_layout(lay), t, ops.comm)
+    return L.dss(lay, t, ops.comm)
+
+
+def _add_neighbour_planes(ops: EngineOps, lay, y, bnd):
+    """Sharded box mesh: send K1's raw boundary planes `bnd` to the
+    neighbour ranks and add theirs into y's first and last axis-0 planes
+    (the plane exchange of a distributed operator application). Both ranks
+    of an interface add the same two planes, in either order: the sums are
+    bitwise equal."""
+    if not _sharded(ops):
+        return y
+    from_left, from_right = ops.comm.exchange(bnd[0], bnd[1])
+    nnc, plane = lay.nnc, lay.plane_cols
+    g = y.view(ops.nelem[0], -1, nnc)
+    g[0, :, :plane] += from_left
+    g[-1, :, nnc - plane:] += from_right
+    return y
+
+
 def _apply_mat(ops: EngineOps, lay, t, matT):
     """y = DSS(t @ matT), the one hot operator-application pattern: on a
-    box mesh the fused kernel (its plain version on the CPU); with
-    ops.fused False, or on an unstructured mesh, the plain ops/local.py
-    route."""
+    box mesh the fused kernel (its plain version on the CPU), plus the
+    neighbour ranks' planes when sharded; with ops.fused False, or on an
+    unstructured mesh, the plain ops/local.py route."""
     if ops.fused and lay.structured:
-        y, _ = fused_apply(t, matT, ops.nelem, ops.ngl, lay.ncomp)
-        return y
-    return L.dss(lay, L.emm(t, matT))
+        y, bnd = fused_apply(t, matT, ops.nelem, ops.ngl, lay.ncomp)
+        return _add_neighbour_planes(ops, lay, y, bnd)
+    return _dss(ops, lay, L.emm(t, matT))
 
 
 def apply_K(ops: EngineOps, v):
     """K v assembled: the dense route of _apply_mat, or with ops.sumfact
     the sum-factorized product and then the DSS (K1's DSS pass alone on a
-    box mesh with ops.fused, else the plain one)."""
+    box mesh with ops.fused, its planes exchanged when sharded; else the
+    plain one)."""
     if ops.sumfact is not None:
         z = S.apply_sumfact_k(ops.sumfact, v)
         if ops.fused and ops.lay_v.structured:
-            return dss_pass(z, ops.nelem, ops.ngl, ops.dim)[0]
-        return L.dss(ops.lay_v, z)
+            y, bnd = dss_pass(z, ops.nelem, ops.ngl, ops.dim)
+            return _add_neighbour_planes(ops, ops.lay_v, y, bnd)
+        return _dss(ops, ops.lay_v, z)
     return _apply_mat(ops, ops.lay_v, v, ops.KT)
 
 
@@ -545,7 +635,11 @@ def _masked_solve(ops: EngineOps, free, vort, vel, stats=None, fdm=None):
     # `con*v` passthrough because every loop vector stays exactly zero
     # there. FDM masks with `free` and re-adds `con*r`; the Jacobi divide
     # maps zeros to zeros.
-    if ops.pc == "fdm" and fdm is not None:
+    if ops.pc == "fdm" and isinstance(fdm, SlabFDM):
+        def M_inv(r):
+            z = fdm_apply_slab(fdm, free * r, ops.nelem, ops.ngl, ops.comm)
+            return free * z + con * r
+    elif ops.pc == "fdm" and fdm is not None:
         def M_inv(r):
             z = fdm_apply(fdm, free * r, nelem=ops.nelem, ngl=ops.ngl)
             return free * z + con * r
@@ -563,7 +657,8 @@ def _masked_solve(ops: EngineOps, free, vort, vel, stats=None, fdm=None):
     else:
         res = pcg(A, b, free * vel + vc, M_inv=M_inv,
                   rtol=ops.cg_rtol, atol=ops.cg_atol,
-                  maxiter=ops.cg_maxiter, dot=_dot_v(ops), A0=A0)
+                  maxiter=ops.cg_maxiter, dot=_dot_v(ops), A0=A0,
+                  dots=_dots_v(ops))
         counted = res.loop_applies
     if stats is not None:
         stats.append((res.iters, counted))
@@ -598,6 +693,8 @@ def rhs_local(ops: EngineOps, time, vort, vel, stats=None):
 
 def rk_error_norm(ops: EngineOps, e):
     """Ownership-weighted RMS over global vorticity dofs."""
-    n_glob = ops.lay_w.inv_mult.sum()   # == n_nodes*dim_w
+    n_glob = ops.lay_w.inv_mult.sum()   # == n_nodes*dim_w (this rank's share)
     ss = (e * e * ops.lay_w.inv_mult).sum()
+    if _sharded(ops):
+        ss, n_glob = ops.comm.psum(torch.stack([ss, n_glob]))
     return torch.sqrt(ss / n_glob)

@@ -137,7 +137,7 @@ def variant_apply_ref(t: torch.Tensor, matT: torch.Tensor, nelem: tuple,
     u = L.emm(t, matT)
     if do_rolls:
         return L.dss_box(u, nelem, ngl, ncomp_out,
-                         F._perms(ngl, dim, ncomp_out, t.device))
+                         L.make_perms(ngl, dim, ncomp_out, t.device))
     ne0 = nelem[0]
     lo = slice(blk - 1, ne0 - 1, blk)     # rows s*blk - 1, s = 1..nblk-1
     hi = slice(blk, ne0, blk)             # rows s*blk
@@ -187,7 +187,7 @@ def main(argv=None) -> dict:
     R = ne * ne
     blk = check_block(ne, args.block, "ne")
     t0, matT = X.inputs(ne, ngl, ncomp, dev)
-    perms = F._perms(ngl, 3, ncomp, dev)
+    perms = L.make_perms(ngl, 3, ncomp, dev)
     print(f"device: {X.device_name(dev)}; {ne}^3 ngl={ngl} "
           f"({t0.shape[1]}->{matT.shape[1]}), block: {blk}", flush=True)
 

@@ -195,7 +195,7 @@ def fused3x_apply_ref(t: torch.Tensor, matT: torch.Tensor, nelem: tuple,
     nelem = tuple(int(n) for n in nelem)
     _check(t, matT, nelem, ngl, ncomp_out, block)
     return L.dss_box(mm3x_ref(t, matT), nelem, ngl, ncomp_out,
-                     F._perms(ngl, len(nelem), ncomp_out, t.device))
+                     L.make_perms(ngl, len(nelem), ncomp_out, t.device))
 
 
 def fused3x_apply(t: torch.Tensor, matT: torch.Tensor, nelem: tuple,

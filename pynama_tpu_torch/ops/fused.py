@@ -33,7 +33,6 @@ not count).
 from __future__ import annotations
 
 import ctypes
-import functools
 import itertools
 import math
 
@@ -61,17 +60,12 @@ def _shapes(nelem, ngl, ncomp_out):
     return dim, E, R, nnc_out, plane
 
 
-@functools.lru_cache(maxsize=64)
-def _perms(ngl: int, dim: int, ncomp: int, device: torch.device) -> tuple:
-    return L.make_perms(ngl, dim, ncomp, device)
-
-
 def dss_ref(z: torch.Tensor, nelem: tuple, ngl: int, ncomp: int):
     """Plain PyTorch version of the DSS pass: (dss(z), raw boundary
     planes)."""
     nelem = tuple(int(n) for n in nelem)
     dim, E, R, nnc, plane = _shapes(nelem, ngl, ncomp)
-    perms = _perms(ngl, dim, ncomp, z.device)
+    perms = L.make_perms(ngl, dim, ncomp, z.device)
     y = L.dss_box(z, nelem, ngl, ncomp, perms)
     # boundary planes: the single-slice DSS (axes 1..dim-1) of the first
     # and last axis-0 slices

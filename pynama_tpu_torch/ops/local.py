@@ -27,12 +27,19 @@ These are the plain PyTorch versions: `ops/fused.py` computes
 ``dss(layout, emm(t, matT))`` for box meshes in one hand-written CUDA
 kernel on the GPU and uses these as its plain reference on the CPU.
 
-Left out until their ROADMAP item (14, sharding): `dss_overlapped`, the
-layout's `iface` rows and the sharded (`axis_name`) branches.
+Sharded runs (`parallel/`) pass a `comm` (`parallel/comm.py::SlabComm`,
+the counterpart of the JAX package's `axis_name`): on a box mesh split into
+axis-0 slabs the axis-0 pass also exchanges the outermost interface planes
+with the neighbour ranks; on an unstructured mesh split into element ranges
+each rank's fan-in is partial and one `psum` of the partition-interface
+rows (`LocalLayout.iface`) completes it. `dss_overlapped` is the box-mesh
+variant that posts the plane exchange before the axes-1..d-1 passes and
+waits for it after them.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -86,8 +93,10 @@ def perm_arrays(ngl: int, dim: int, ncomp: int) -> list:
     return [_perm_index(cols[d], cols[(d + 1) % dim]) for d in range(dim)]
 
 
+@functools.lru_cache(maxsize=64)
 def make_perms(ngl: int, dim: int, ncomp: int, device) -> tuple:
-    """`perm_arrays` as int64 tensors on `device`."""
+    """`perm_arrays` as int64 tensors on `device`, made once per argument
+    tuple (read-only, shared by every caller)."""
     return tuple(torch.as_tensor(p, device=device)
                  for p in perm_arrays(ngl, dim, ncomp))
 
@@ -111,6 +120,12 @@ class LocalLayout:
     cell_nodes: Optional[torch.Tensor] = None
     structured: bool = True
     mesh_dim: int = 0
+    #: sharded unstructured meshes: global node ids on the partition
+    #: interface (nodes touched by the cells of two or more ranks). The
+    #: cross-rank DSS sums only these rows, which is exact: every other
+    #: row is complete on its one rank and no other rank's cells read it.
+    #: None -> the whole node vector is summed.
+    iface: Optional[torch.Tensor] = None
 
     @property
     def dim(self) -> int:
@@ -127,6 +142,12 @@ class LocalLayout:
     @property
     def nnc(self) -> int:
         return self.nnode_el * self.ncomp
+
+    @property
+    def plane_cols(self) -> int:
+        """Columns in one local axis-plane (a trailing block in axis-major
+        order)."""
+        return (self.nnode_el // self.ngl) * self.ncomp
 
 
 def make_local_layout(mesh, ncomp: int, device, dtype) -> LocalLayout:
@@ -169,52 +190,132 @@ def to_global(mesh, t_local, ncomp: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------- DSS core
+def _sharded(comm) -> bool:
+    return comm is not None and comm.size > 1
+
+
 def _dss_axis_major(t: torch.Tensor, nelem: tuple, axis: int, nnc: int,
-                    plane: int) -> torch.Tensor:
+                    plane: int, comm=None) -> torch.Tensor:
     """Interface-plane exchange along mesh `axis`, with t's columns in
     axis-major order: local plane 0 = first `plane` columns, plane N-1 =
-    last `plane` columns. t: (E, nnc)."""
+    last `plane` columns. t: (E, nnc).
+
+    With a `comm` of two or more ranks (axis-0 slabs), the axis-0 pass
+    also sends this slab's outermost planes to the neighbour ranks and adds
+    theirs: the plane exchange inside a distributed operator application."""
     ne = nelem[axis]
-    if ne == 1:
+    exchange = axis == 0 and _sharded(comm)
+    if ne == 1 and not exchange:
         return t
     lead = int(np.prod(nelem[:axis]))
     trail = int(np.prod(nelem[axis + 1:]))
     g = t.reshape(lead, ne, trail, nnc)
     out = g.clone()
-    out[:, 1:, :, :plane] += g[:, :-1, :, nnc - plane:]   # left nbr's last
-    out[:, :-1, :, nnc - plane:] += g[:, 1:, :, :plane]   # right nbr's first
+    if ne > 1:
+        out[:, 1:, :, :plane] += g[:, :-1, :, nnc - plane:]  # left nbr's last
+        out[:, :-1, :, nnc - plane:] += g[:, 1:, :, :plane]  # right nbr's 1st
+    if exchange:
+        from_left, from_right = comm.exchange(out[0, 0, :, :plane],
+                                              out[0, -1, :, nnc - plane:])
+        out[0, 0, :, :plane] += from_left
+        out[0, -1, :, nnc - plane:] += from_right
     return out.reshape(-1, nnc)
 
 
 def dss_box(t: torch.Tensor, nelem: tuple, ngl: int, ncomp: int,
-            perms: tuple) -> torch.Tensor:
-    """Full DSS of a canonical-order box-mesh local vector."""
+            perms: tuple, comm=None) -> torch.Tensor:
+    """Full DSS of a canonical-order box-mesh local vector (of this rank's
+    axis-0 slab, with the neighbours' planes added, when `comm` has two or
+    more ranks)."""
     dim = len(nelem)
     nnc = ngl ** dim * ncomp
     plane = ngl ** (dim - 1) * ncomp
     for d in range(dim):
-        t = _dss_axis_major(t, nelem, d, nnc, plane)
+        t = _dss_axis_major(t, nelem, d, nnc, plane, comm)
         t = t[:, perms[d]]          # rotate to the next axis-major order
     return t
 
 
-def _dss_gather(layout: LocalLayout, t: torch.Tensor) -> torch.Tensor:
+def _dss_gather(layout: LocalLayout, t: torch.Tensor,
+                comm=None) -> torch.Tensor:
     """General-mesh DSS: the fan-in of every global node as one gather over
     the padded incidence table (the pad slot reads a zero row) and a sum
     over it, then every slot reads its node's sum back. Deterministic (no
-    `index_add_`), so every duplicated slot comes out bitwise equal."""
+    `index_add_`), so every duplicated slot comes out bitwise equal.
+
+    With a `comm` of two or more ranks (element ranges), the table holds
+    this rank's slots only, so the fan-in is partial; one psum of the
+    `iface` rows (of every row when iface is None) completes it, the same
+    bits on every rank."""
     E, nn, c = layout.n_cells, layout.nnode_el, layout.ncomp
     zf = torch.cat([t.reshape(E * nn, c), t.new_zeros((1, c))])
     g = zf[layout.incidence].sum(dim=1)               # (n_nodes, c)
+    if _sharded(comm):
+        if layout.iface is not None:
+            g[layout.iface] = comm.psum(g[layout.iface])
+        else:
+            g = comm.psum(g)
     return g[layout.cell_nodes].reshape(E, nn * c)
 
 
-def dss(layout: LocalLayout, t: torch.Tensor) -> torch.Tensor:
+def dss(layout: LocalLayout, t: torch.Tensor, comm=None) -> torch.Tensor:
     """Full direct-stiffness summation: canonical-order in/out, every
-    duplicated slot assembled."""
+    duplicated slot assembled (over every rank's slab when `comm` has two
+    or more ranks)."""
     if not layout.structured:
-        return _dss_gather(layout, t)
-    return dss_box(t, layout.nelem, layout.ngl, layout.ncomp, layout.perms)
+        return _dss_gather(layout, t, comm)
+    return dss_box(t, layout.nelem, layout.ngl, layout.ncomp, layout.perms,
+                   comm)
+
+
+def make_plane_layout(layout: LocalLayout) -> LocalLayout:
+    """LocalLayout of the (dim-1)-dimensional axis-0 interface-plane
+    sub-mesh (elements (ne1[, ne2]), same ngl/ncomp): the working set of
+    the overlapped DSS's plane passes. inv_mult is not read by the DSS and
+    is left empty."""
+    sub_nelem = tuple(layout.nelem[1:])
+    perms = make_perms(layout.ngl, len(sub_nelem), layout.ncomp,
+                       layout.inv_mult.device)
+    return LocalLayout(perms=perms, inv_mult=layout.inv_mult.new_zeros(0),
+                       ngl=layout.ngl, nelem=sub_nelem, ncomp=layout.ncomp)
+
+
+def dss_overlapped(layout: LocalLayout, plane_layout: LocalLayout,
+                   t: torch.Tensor, comm) -> torch.Tensor:
+    """The sharded box-mesh DSS with the plane exchange overlapped against
+    the bulk passes.
+
+    The per-axis passes commute (each is a linear sum over a disjoint index
+    dimension), and a neighbour needs only this slab's boundary plane with
+    the other axes' passes applied. So: run the two boundary planes through
+    the axes-1..d-1 plane DSS, post the exchange (`comm.exchange_start`),
+    run the whole volume's axes-1..d-1 passes and the axis-0 internal adds
+    while the transfers fly, then wait and add the received planes. Equal
+    to `dss(layout, t, comm)` up to the order of the summation."""
+    nnc, plane = layout.nnc, layout.plane_cols
+    nelem, dim = layout.nelem, layout.dim
+    ne0 = nelem[0]
+    trail = int(np.prod(nelem[1:]))
+    g = t.reshape(ne0, trail, nnc)
+
+    def plane_dss(p):                    # (trail, plane) sub-mesh DSS
+        sub = plane_layout
+        return dss_box(p.contiguous(), sub.nelem, sub.ngl, sub.ncomp,
+                       sub.perms)
+
+    pending = comm.exchange_start(plane_dss(g[0, :, :plane]),
+                                  plane_dss(g[-1, :, nnc - plane:]))
+    # bulk: axes 1..dim-1 over the whole slab, then axis-0 internal adds
+    u = t[:, layout.perms[0]]                    # rotate to axis-1-major
+    for d in range(1, dim):
+        u = _dss_axis_major(u, nelem, d, nnc, plane)
+        u = u[:, layout.perms[d]]                # ...back to canonical
+    u = _dss_axis_major(u, nelem, 0, nnc, plane)
+    from_left, from_right = pending.wait()
+    gu = u.reshape(ne0, trail, nnc)
+    gu[0, :, :plane] += from_left
+    gu[-1, :, nnc - plane:] += from_right
+    return gu.reshape(-1, nnc)
 
 
 def local_dot(layout: LocalLayout, a: torch.Tensor,

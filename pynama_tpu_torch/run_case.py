@@ -30,17 +30,13 @@ import os
 import numpy as np
 import torch
 
+from pynama_tpu_torch.cases.problem import FUSED_BLOCK_LEFT_OUT
 from pynama_tpu_torch.config import device_of
 
 logger = logging.getLogger("pynama_tpu_torch.run_case")
 
 CASE_DIR = os.path.join(os.path.dirname(__file__), "cases", "yaml")
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
-
-FUSED_BLOCK_LEFT_OUT = (
-    "-fused-block is an option the port leaves out (ROADMAP, \"Options the "
-    "port leaves out\": the Mosaic block probing of _pick_block/probe_block "
-    "has no Hopper meaning; the CUDA kernel takes every shape)")
 
 
 def load_case(name: str) -> dict:
@@ -269,8 +265,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("-solver", default=None,
                     choices=["cg", "gmres", "direct", "auto"])
     ap.add_argument("-ndev", type=int, default=None,
-                    help="run the transient sharded over N devices "
-                         "(not ported yet: ROADMAP item 14)")
+                    help="run the transient sharded over N ranks "
+                         "(spawned here; in place under torchrun)")
     # KLE (KSP) solver tuning — the reference's -ksp_* passthrough analog
     ap.add_argument("-cg-rtol", dest="cg_rtol", type=float, default=None,
                     help="KLE Krylov relative tolerance")

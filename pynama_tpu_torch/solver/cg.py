@@ -39,7 +39,7 @@ def pcg(A: Callable, b: torch.Tensor, x0: torch.Tensor,
         M_inv: Callable | None = None, rtol: float = 1e-12,
         atol: float = 0.0, maxiter: int = 1000,
         dot: Callable | None = None, A0: Callable | None = None,
-        check_every: int = 8) -> CGResult:
+        check_every: int = 8, dots: Callable | None = None) -> CGResult:
     """Solve A x = b with preconditioned CG.
 
     A and M_inv are linear callables on tensors of b's shape. Stopping:
@@ -49,17 +49,21 @@ def pcg(A: Callable, b: torch.Tensor, x0: torch.Tensor,
     the caller guarantees A(v) == A0(v) for every vector the loop produces
     (the Dirichlet-condensed KLE operator, whose loop iterates are exactly
     zero on constrained dofs; see local_engine._masked_solve).
+
+    dots(pairs), when given, returns [dot(a, b) for a, b in pairs] in one
+    go (a sharded run reduces them in one collective); the values must be
+    those of `dot`.
     """
     if M_inv is None:
         M_inv = lambda r: r
     if dot is None:
         dot = _vdot
+    if dots is None:
+        dots = lambda pairs: [dot(a, c) for a, c in pairs]
 
     r = b - (A0 if A0 is not None else A)(x0)
     z = M_inv(r)
-    gamma = dot(r, z)
-    rr = dot(r, r)
-    bnorm2 = dot(b, b)
+    gamma, rr, bnorm2 = dots([(r, z), (r, r), (b, b)])
     tol2 = torch.clamp(rtol * torch.sqrt(bnorm2), min=atol) ** 2
     x, p = x0, z
     k = torch.zeros((), dtype=torch.int64, device=b.device)
@@ -79,8 +83,7 @@ def pcg(A: Callable, b: torch.Tensor, x0: torch.Tensor,
         x = x + alpha * p
         r = r - alpha * Ap
         z = M_inv(r)
-        gamma_new = dot(r, z)
-        rr_new = dot(r, r)
+        gamma_new, rr_new = dots([(r, z), (r, r)])
         beta = torch.where(run, gamma_new / torch.where(run, gamma, one),
                            zero)
         p = z + beta * p

@@ -30,9 +30,12 @@ Setup (`build_fdm`) is host numpy float64, as in the reference; the apply
 per-mode (c, c) blocks as a broadcast multiply and sum, and the
 grid<->local reshapes and copies.
 
-Left out until sharding is ported (ROADMAP Queue A item 14): the
-slab-sharded form (`SlabFDM`, `shard_fdm`, `_contract_axis`,
-`fdm_apply_slab`).
+The slab form for sharded runs (`SlabFDM`, `shard_fdm`, `_contract_axis`,
+`fdm_apply_slab`): on one rank's axis-0 slab the local axes 1..d-1
+transform as before, the axis-0 analysis is an ownership-weighted partial
+projection psum-reduced to the whole mode grid (one psum per
+application), and the axis-0 synthesis gives the slab's own rows from the
+replicated modes with no communication.
 """
 from __future__ import annotations
 
@@ -378,3 +381,110 @@ def fdm_apply(f: FDMOps, r_loc: torch.Tensor, nelem: tuple | None = None,
     nodes = torch.as_tensor(f.cell_nodes, device=r_loc.device)
     out = z.reshape(-1, c)[nodes]                   # (E, nn, c)
     return out.reshape(E, nnc)
+
+
+# ------------------------------------------------------------- slab form
+@dataclasses.dataclass(frozen=True)
+class SlabFDM:
+    """One rank's slab of an FDMOps (axis-0 slabs, as
+    `parallel/sharded_engine.py` splits the mesh).
+
+    The global transform chain factorizes per rank: the local axes (1..d-1)
+    are untouched by the split, and the axis-0 analysis becomes an
+    ownership-weighted partial projection `Q0_ownᵀ · z_slab`, psum-reduced
+    to the full mode grid, while the axis-0 synthesis needs no
+    communication (each rank computes its own slab rows `Q0_syn · ẑ` from
+    the replicated mode tensor, so the duplicated interface plane comes
+    out bitwise the same on both of its ranks)."""
+    #: (c, k+1, n0) ownership rows of Q0 (the interface plane shared with
+    #: the next rank zeroed: that rank owns it)
+    Q0_own: torch.Tensor
+    #: (c, k+1, n0) slab rows of Q0 (both interface planes kept)
+    Q0_syn: torch.Tensor
+    #: local-axis eigenbases, each (c, n_d, n_d)
+    Qs_rest: tuple
+    #: the replicated per-mode inverse blocks, (c, c, n0[, n1, n2])
+    binv: torch.Tensor
+    #: the slab's rows of the Jacobi-leftover coefficients, (slab_nodes, c)
+    jleft: torch.Tensor
+    ncomp: int
+
+
+def shard_fdm(f: FDMOps, ndev: int, rank: int) -> SlabFDM:
+    """Rank `rank`'s SlabFDM of `f` split into `ndev` axis-0 slabs, on f's
+    device."""
+    npts = f.npts
+    c = f.ncomp
+    n0 = npts[0]
+    if (n0 - 1) % ndev != 0:
+        raise ValueError(f"axis-0 planes {n0 - 1} not divisible by {ndev}")
+    k = (n0 - 1) // ndev
+    rows = slice(rank * k, rank * k + k + 1)
+    Q0 = f.Qs[0]                                    # (c, n0, n0)
+    syn = Q0[:, rows, :].clone()
+    own = syn.clone()
+    if rank != ndev - 1:
+        own[:, -1, :] = 0.0                         # the next rank owns it
+    jleft = f.jleft.reshape(npts + (c,))[rows].reshape(-1, c)
+    return SlabFDM(Q0_own=own, Q0_syn=syn, Qs_rest=tuple(f.Qs[1:]),
+                   binv=f.binv, jleft=jleft.contiguous(), ncomp=c)
+
+
+def slab_fdm_arrays(s: SlabFDM) -> dict:
+    """A SlabFDM's tensors as host numpy arrays (`Qs_rest` as Qs_rest.0,
+    Qs_rest.1, ...), for `slab_fdm_from_arrays` on another process."""
+    out = {k: getattr(s, k).cpu().numpy()
+           for k in ("Q0_own", "Q0_syn", "binv", "jleft")}
+    for i, q in enumerate(s.Qs_rest):
+        out[f"Qs_rest.{i}"] = q.cpu().numpy()
+    out["ncomp"] = s.ncomp
+    return out
+
+
+def slab_fdm_from_arrays(a: dict, *, device, dtype) -> SlabFDM:
+    """The SlabFDM `slab_fdm_arrays` took apart, on `device` in `dtype`."""
+    f = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
+    n_rest = sum(1 for k in a if k.startswith("Qs_rest."))
+    return SlabFDM(Q0_own=f(a["Q0_own"]), Q0_syn=f(a["Q0_syn"]),
+                   Qs_rest=tuple(f(a[f"Qs_rest.{i}"])
+                                 for i in range(n_rest)),
+                   binv=f(a["binv"]), jleft=f(a["jleft"]),
+                   ncomp=int(a["ncomp"]))
+
+
+def _contract_axis(Q: torch.Tensor, z: torch.Tensor, pos: int,
+                   transpose_q: bool) -> torch.Tensor:
+    """Contract z's axis `pos` with Q (c, n, n); z leads with the component
+    axis."""
+    z = torch.movedim(z, pos, 1)
+    Qm = Q.transpose(1, 2) if transpose_q else Q
+    sh = z.shape
+    z = torch.matmul(Qm, z.reshape(sh[0], sh[1], -1)).reshape(sh)
+    return torch.movedim(z, 1, pos)
+
+
+def fdm_apply_slab(f: SlabFDM, r_loc: torch.Tensor, nelem: tuple, ngl: int,
+                   comm) -> torch.Tensor:
+    """Sharded z = S⁻¹ r on one rank's consistent slab-local vector
+    (E_loc, nn*ncomp); `nelem` is the slab's. Exactly one psum (of the mode
+    grid) per application."""
+    c = f.ncomp
+    z = _local_to_grid(r_loc, nelem, ngl, c)        # (k+1, n1[, n2], c)
+    z = torch.movedim(z, -1, 0)                     # (c, k+1, ...)
+    g0 = z
+    # analysis on the unsplit local axes first (slab-sized work)
+    for i, Q in enumerate(f.Qs_rest):
+        z = _contract_axis(Q, z, i + 2, transpose_q=True)
+    # axis-0 ownership partial projection, reduced to the full mode grid
+    sh = z.shape
+    zh = torch.matmul(f.Q0_own.transpose(1, 2), z.reshape(c, sh[1], -1))
+    zh = comm.psum(zh)                              # (c, n0, rest)
+    zh = zh.reshape(f.binv.shape[1:])
+    zh = (f.binv * zh.unsqueeze(0)).sum(dim=1)
+    # synthesis: the slab's rows from the replicated modes, local axes
+    z = torch.matmul(f.Q0_syn, zh.reshape(c, zh.shape[1], -1)).reshape(sh)
+    for i, Q in enumerate(f.Qs_rest):
+        z = _contract_axis(Q, z, i + 2, transpose_q=False)
+    z = z + f.jleft.T.reshape(g0.shape) * g0
+    z = torch.movedim(z, 0, -1)
+    return _grid_to_local(z, nelem, ngl, c)

@@ -34,6 +34,7 @@ import yaml
 from pynama_tpu import run_case as jrc
 from pynama_tpu.io.binary import load_snapshot as jload_snapshot
 from pynama_tpu_torch import run_case as trc
+from pynama_tpu_torch.cases import Problem as TProblem
 from pynama_tpu_torch.io.binary import load_snapshot as tload_snapshot
 
 torch.set_num_threads(1)
@@ -320,13 +321,53 @@ def test_flag_errors(tmp_path, monkeypatch, capsys):
     with pytest.raises(SystemExit):
         trc.main(base + ["-fused-block", "2"])
     assert "Options the port leaves out" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="item 14"):
-        trc.main(base + ["-solver", "cg", "-ndev", "2"])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        trc.main(["-case", "ibm-static", "-log", "WARNING", "-nelem", "4",
-                  "4", "-ndev", "2"] + PORT)
+    # -ndev: the JAX package's refusals of the same calls (a slab split
+    # needs nelem[0] % ndev == 0; sharding needs the engine, which "auto"
+    # does not build for this small IBM case)
+    ndev = base[:-len(PORT)] + ["-solver", "cg", "-ndev", "2"]
+    for main in (jrc.main, lambda a: trc.main(a + PORT)):
+        with pytest.raises(ValueError, match=r"nelem\[0\]=3 not divisible "
+                                             "by 2 devices"):
+            main(ndev)
+    ibm = ["-case", "ibm-static", "-log", "WARNING", "-nelem", "4", "4",
+           "-ndev", "2"]
+    with pytest.raises(AssertionError, match="without engine"):
+        jrc.main(ibm)
+    with pytest.raises(ValueError, match="element-local engine"):
+        trc.main(ibm + PORT)
     with pytest.raises(FileNotFoundError):
         trc.load_case("no-such-case-xyz")
+
+
+def test_problem_refuses_fused_block():
+    """Problem(..., fused_block=N) raises with the CLI's -fused-block
+    message (the JAX package hands it to build_engine's Mosaic block
+    probing, which the port leaves out); fused_block=None is taken."""
+    cfg = trc.load_case("taylor-green")
+    with pytest.raises(NotImplementedError) as err:
+        TProblem(cfg, device="cpu", fused_block=2)
+    assert str(err.value) == trc.FUSED_BLOCK_LEFT_OUT
+    TProblem(cfg, device="cpu", fused_block=None)
+
+
+def test_ndev_flag_matches(tmp_path, monkeypatch):
+    """-ndev 2 through run_case: the taylor-green case (4x4 ngl=3, CG)
+    and ibm-static (4x4, CG, cut to 2 steps in a copy) run sharded on 2
+    gloo ranks and write the JAX package's -ndev 2 files."""
+    base = ["-log", "WARNING", "-nelem", "4", "4", "-ngl", "3", "-solver",
+            "cg", "-ndev", "2"]
+    (tmp_path / "tg").mkdir()
+    dj, dt, (p, t, steps) = run_both(tmp_path / "tg", monkeypatch,
+                                     ["-case", "taylor-green"] + base)
+    assert len(p.rank_stats) == 2 and steps >= 3
+    assert_dirs_match(dj / "tg-test", dt / "tg-test")
+    (tmp_path / "ibm").mkdir()
+    path, cfg = case_copy(tmp_path / "ibm", "ibm-static",
+                          **{"time-solver": {"max-steps": 2}})
+    dj, dt, (p, t, steps) = run_both(tmp_path / "ibm", monkeypatch,
+                                     ["-case", path] + base)
+    assert type(p).__name__ == "ImmersedBoundaryStatic" and steps == 2
+    assert_dirs_match(dj / cfg["save-dir"], dt / cfg["save-dir"])
 
 
 @pytest.mark.parametrize("name", ["ibm-static", "ibm-dynamic"])

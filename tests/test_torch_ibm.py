@@ -345,12 +345,21 @@ def test_device_shuttles_match_host(monkeypatch):
 def test_make_problem_picks_the_ibm_class():
     """run_case.make_problem: bodies -> ImmersedBoundaryStatic, a body with
     vel dynamic -> ImmersedBoundaryDynamic (pynama_tpu/run_case.py:43-52);
-    ndev > 1 raises naming item 14."""
+    with ndev > 1 the IBM class runs sharded and ends on the
+    JAX package's 2-device run: the same steps, fields and forces to
+    RUN_RTOL."""
     for vel, cls in (("static", TStat), ("dynamic", TDyn)):
         p = trc.make_problem(ibm_config(nelem=4, vel=vel), **F64)
         assert type(p) is cls
-    p = trc.make_problem(ibm_config(nelem=4), ndev=2, solver="cg", **F64)
+    cfg = ibm_config(nelem=4)
+    p = trc.make_problem(cfg, ndev=2, solver="cg", **F64)
     p.setUp()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        p.start_solver()
+    t, steps = p.start_solver()
+    pj = JStat(cfg, ndev=2, solver="cg")
+    pj.setUp()
+    tj, sj = pj.start_solver()
+    assert steps == sj == 3 and len(p.rank_stats) == 2
+    assert rel(p.vel.numpy(), np.asarray(pj.vel)) <= RUN_RTOL
+    assert rel(np.asarray(p.history["cd"]),
+               np.asarray(pj.history["cd"])) <= RUN_RTOL
     assert tibm.ImmersedBoundaryStatic is TStat

@@ -123,7 +123,11 @@ def test_port_never_imports_jax():
             "assert {'pynama_tpu_torch.mesh.gmsh', "
             "'pynama_tpu_torch.mesh.unstructured', "
             "'pynama_tpu_torch.mesh.unstructured3d', "
-            "'pynama_tpu_torch.ops.sumfact'} <= set(names), names; "
+            "'pynama_tpu_torch.ops.sumfact', "
+            "'pynama_tpu_torch.parallel.sharded_engine', "
+            "'pynama_tpu_torch.parallel.multihost', "
+            "'pynama_tpu_torch.parallel.comm', "
+            "'pynama_tpu_torch.ibm.sharded'} <= set(names), names; "
             "assert 'jax' not in sys.modules; "
             "assert 'pynama_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,

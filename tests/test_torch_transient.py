@@ -55,7 +55,8 @@ def test_problem_rejects_unported_paths():
     """solver="direct" runs and matches the JAX package; ndev>1 without
     the engine (no solver option: "auto" resolves this small case to the
     direct solve) raises the reference's ValueError, and with the engine
-    raises until sharding is ported (item 14)."""
+    runs sharded over 2 ranks and ends on the JAX package's
+    2-device transient: the same steps, fields to 1e-6 / 1e-8."""
     cfg = cavity_config(ngl=3, nelem=2, dim=2)
     p = TProblem(cfg, device="cpu", dtype=torch.float64, solver="direct")
     p.setUp()
@@ -73,11 +74,17 @@ def test_problem_rejects_unported_paths():
     assert p.solver_method == "direct" and p.engine_ops is None
     with pytest.raises(ValueError, match="element-local engine"):
         p.start_solver()
-    p = TProblem(cfg, device="cpu", dtype=torch.float64, solver="cg",
-                 ndev=2)
+    p = TProblem(cfg, device="cpu", dtype=torch.float64, ndev=2, **OPTS)
     p.setUp()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        p.start_solver()
+    t, steps = p.start_solver()
+    pj = JProblem(cfg, ndev=2, **OPTS)
+    pj.setUp()
+    tj, sj = pj.start_solver()
+    assert steps == sj > 0 and abs(t - tj) <= 1e-8
+    assert len(p.rank_stats) == 2
+    assert p.rank_stats[0]["cg_iters"] == p.rank_stats[1]["cg_iters"]
+    np.testing.assert_allclose(p.vort.numpy(), np.asarray(pj.vort),
+                               rtol=1e-6, atol=1e-8)
 
 
 def test_taylor_green_decay_matches():
