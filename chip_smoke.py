@@ -3,7 +3,8 @@ the main path, the analytic-function case, the FDM preconditioner, the
 global-layout path (direct, Operators, GMRES), the command line
 (run_case.py and its IO), gmsh meshes (quads and hexes, the gather DSS and
 the sum-factorized K), the immersed-boundary cases and, at full size,
-the exp/ decomposition runs.
+the exp/ decomposition runs, sharded runs and cut-down long-horizon
+validation runs.
 
     python3 chip_smoke.py
 
@@ -16,8 +17,8 @@ exits non-zero without the final result line:
 2. build    nvcc build of the kernel library (seconds, ptxas register use)
 3. kernels  fused_apply's CUDA kernel against its plain PyTorch version on
             the card, at every operator shape of the engine (3D ngl=4 24^3,
-            3D ngl=3 25^3, 3D ngl=7 8^3, 2D ngl=3 50x50, degenerate
-            extents), float32 and
+            3D ngl=3 25^3, 3D ngl=7 8^3, 2D ngl=3 50x50, 35x35 and 70x70,
+            2D ngl=4 10x10, degenerate extents), float32 and
             float64: y and bnd each within max|err|/max|ref| <= 1e-5 (f32) /
             1e-12 (f64), and every duplicated slot bitwise equal; its DSS
             pass alone (dss_pass) on a random u bitwise equal to the plain
@@ -207,6 +208,21 @@ exits non-zero without the final result line:
             rank of every run K1's launches == the rank's own operator
             applications, and every rank took the same steps and CG
             iterations
+17. validation
+            cut-down versions of the two long-horizon validation drivers
+            (pynama_tpu_torch/exp/): (a) tests/test_cavity_re100.py's
+            coarse Re=100 cavity march (10x10 ngl=4, f64, CG rtol 1e-9,
+            maxiter 4000) cut to t=1, through exp/cavity_re100.py's
+            march_segments: its centerline profiles against the JAX
+            package's own march (CAVITY_REF, within CAVITY_PROFILE_LIMIT),
+            its accepted steps within CAVITY_STEP_SLACK of the JAX
+            package's; (b) the static cylinder of exp/ibm_cd.py at 35^2
+            (f32, CG rtol 1e-6, RK tolerances 1e-4) to t=30 through
+            exp/ibm_cd.py's `run`: the cd_phys and cd_reference_definition
+            tail means (t > 0.7 t_end) within the TPU run's tail std of its
+            tail mean (exp/ibm_cd_r05.json), max|H v - v_body| after the
+            last correction <= IBM_BODY_RES_LIMIT; in each, s/step, steps,
+            CG iterations, and K1 launches == the engine's applications
 
 The last three lines are the card's name and power limit (nvidia-smi), the
 record of the four kernels as JSON (K1's also with `launches_by_path`: its
@@ -216,8 +232,9 @@ the cli phase's production run (a) and its -test kle solve (d), the
 unstructured phase's gmsh parts (a)-(c) and (f), which must be 0, and its
 box-mesh sumfact rhs (d), the ibm phase's (a)-(d), `ibm_static` 0, the
 sharded phase's runs summed over their ranks, `sharded_overlap` and
-`sharded_hex` 0 (the plain DSS route, a gmsh mesh); and
-`dss_pass_launches_by_path`: its DSS pass
+`sharded_hex` 0 (the plain DSS route, a gmsh mesh), the validation
+phase's `validation_cavity` and `validation_ibm_cd`;
+and `dss_pass_launches_by_path`: its DSS pass
 launched alone in (d)) and the result line {"ok": true, "device": {...}}.
 A kernel's `bound_ms` is the larger of the
 operations of its function over the card's peak rate for their type and its
@@ -384,6 +401,67 @@ SHARDED_NDEV = 2
 # most with the condition number, ~h^-2: 9x from 8^3 to 24^3, ~1.3e-5. The
 # limit keeps ~7x over that; a wrong plane exchange or psum is O(1).
 SHARDED_F32_LIMIT = 1e-4
+# the validation phase (a): tests/test_cavity_re100.py's coarse march of
+# the Re=100 cavity (pynama_tpu_torch/exp/cavity_re100.py: 10x10 ngl=4,
+# CG rtol 1e-9, maxiter 4000, one segment) in f64 on the card, cut to t=1:
+# to the test's t=10 it took 788 s on an NVIDIA H100 80GB HBM3 at 700 W
+# (284 steps at 2.77 s/step, the CG host-bound), more than this script's
+# time limit leaves beside its other phases. That march to t=10 ran once
+# through pynama_tpu_torch/exp/cavity_re100.py (its artifact
+# cavity_re100_coarse_h100.json there is held against the TPU artifact's
+# t=10 snapshot and the JAX package's march in
+# tests/test_torch_cavity_re100.py)
+CAVITY_COARSE = (10, 4, 1.0)
+# the JAX package's own march to t=1, f64 on the CPU (`python
+# tools/cavity_re100_reference.py --part jax --checkpoints 1`): its accepted
+# steps and its centerline profiles, normalized by the lid velocity, at
+# the coarse mesh's nodes (y for u, x for v, 31 each); 16 s
+CAVITY_REF = {
+    "steps": 34,
+    "u_centerline": [0.0, -0.012347308939922674, -0.027386484896517998,
+        -0.03792319294792617, -0.04208677257662269, -0.05565070434990612,
+        -0.05680069831967959, -0.06963658640411312, -0.07622170718706095,
+        -0.09204859810635133, -0.09080524331568719, -0.11111450755981067,
+        -0.10965452993075846, -0.13053886972839487, -0.1380608855006352,
+        -0.15864997873176362, -0.15239182327252246, -0.16623438276223854,
+        -0.15144393788829622, -0.16015067345987705, -0.13160438234354782,
+        -0.12629593260569524, -0.08639110321430694, -0.03416788961669713,
+        0.026040069535811918, 0.08375036820969639, 0.22746411337820863,
+        0.34789612635333683, 0.4945409949433467, 0.7990306277079527, 1.0],
+    "v_centerline": [0.0, 0.027347679981035176, 0.06468224545610271,
+        0.08013884255188905, 0.0897506830695825, 0.10142845462464213,
+        0.10230553006871249, 0.10551738907918794, 0.10088467530205078,
+        0.10089398102330713, 0.09245969295917726, 0.08527516716420071,
+        0.07436748665482168, 0.0691388017203798, 0.05089926591040218,
+        0.04100277762108146, 0.02558234757778953, 0.0002812427325007385,
+        -0.018385010903175646, -0.038348481820937946, -0.07123201386492418,
+        -0.09367450886440039, -0.11051534967272574, -0.13658058927286537,
+        -0.14232456004744756, -0.14597742116730278, -0.1320620132557077,
+        -0.11588062187194163, -0.08685516499679125, -0.03563479024527717, 0.0],
+}
+# The card's f64 march sums in another order than the CPU's (K1's GEMM and
+# DSS, the CG's dots), and its CG stops at other iterates within rtol
+# 1e-9. Two CPU runs that differ only so, the port against the JAX package
+# (`python tools/cavity_re100_reference.py --part both --checkpoints 1`,
+# one thread, 114 s), took the same 34 steps, and their profiles differ by
+# 1.9e-11 (u) and 1.2e-10 (v) of their max-norms. The limit keeps ~100x
+# over that and lies far below the stepper's tolerance (3e-4), the scale
+# at which another step sequence or a wrong operator shows. The dt
+# controller is continuous in the error norm away from an accept/reject
+# decision, which no attempt meets within rounding, so the step count
+# must be the JAX package's
+CAVITY_PROFILE_LIMIT = 1e-8
+CAVITY_STEP_SLACK = 0
+# the validation phase (b): exp/ibm_cd.py's static cylinder at its
+# coarsest resolution, f32, to t=30 (pynama_tpu_torch/exp/ibm_cd.py `run`:
+# CG rtol 1e-6, maxiter 800, RK tolerances 1e-4; 61 s on the card), its
+# drag tails held within the TPU run's tail std of the TPU's tail mean
+# (exp/ibm_cd_r05.json). 50^2 (126 s) and 70^2 (246 s) ran once through
+# pynama_tpu_torch/exp/ibm_cd.py (its artifact ibm_cd_h100.json there,
+# tests/test_torch_ibm_cd.py)
+IBM_CD_NELEM = (35,)
+IBM_CD_T_END = 30.0
+IBM_CD_TPU_ART = "exp/ibm_cd_r05.json"
 # the decomposition drivers: the flagship shape, depth cut to 200 applies
 # per chain and 3 rounds
 DRIVER_ARGS = ["24", "4", "--nit", "200", "--rounds", "3"]
@@ -421,6 +499,11 @@ SHAPES = [
     ("3d-ngl3-25^3", (25, 25, 25), 3, [(3, 3), (3, 6), (6, 3)]),
     ("3d-ngl7-8^3", (8, 8, 8), 7, [(3, 3), (3, 6), (6, 3)]),
     ("2d-ngl3-50^2", (50, 50), 3, [(2, 2), (1, 2), (2, 1), (2, 3), (3, 2)]),
+    # the validation phase's meshes: the coarse cavity march, and the IBM
+    # drag runs' 35^2 and 70^2 (pynama_tpu_torch/exp/ibm_cd.py)
+    ("2d-ngl4-10^2", (10, 10), 4, [(2, 2), (1, 2), (2, 1), (2, 3), (3, 2)]),
+    ("2d-ngl3-35^2", (35, 35), 3, [(2, 2), (1, 2), (2, 1), (2, 3), (3, 2)]),
+    ("2d-ngl3-70^2", (70, 70), 3, [(2, 2), (1, 2), (2, 1), (2, 3), (3, 2)]),
     ("3d-ngl3-1x2x2", (1, 2, 2), 3, [(3, 1)]),
     ("3d-ngl4-4x1x2", (4, 1, 2), 4, [(3, 3)]),
     ("3d-ngl2-2^3", (2, 2, 2), 2, [(3, 3)]),
@@ -3186,6 +3269,124 @@ def phase_sharded(torch, dev, flagship, t_flagship):
     return k1
 
 
+def _validation_cavity(torch, dev):
+    """(a) The coarse Re=100 cavity march in f64 on the card, against the
+    JAX package's own march. Returns K1's launches."""
+    from pynama_tpu_torch.cases import Problem
+    from pynama_tpu_torch.exp import cavity_re100 as cav
+    from pynama_tpu_torch.ops.fused import fused_apply
+
+    ne, ngl, t_end = CAVITY_COARSE
+    fused_apply.launches = 0
+    p = Problem(cav.cavity_cfg(ne, ngl, t_end), device=dev,
+                dtype=torch.float64, solver="cg", cg_rtol=1e-9,
+                cg_maxiter=4000)
+    t0 = time.perf_counter()
+    p.setUp()
+    setup_s = time.perf_counter() - t0
+    p.cg_log = []
+    t0 = time.perf_counter()
+    t, steps, _, _ = cav.march_segments(p, [t_end])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = fused_apply.launches
+    applications = cav.k1_applications(p.cg_log)
+    prof = cav.centerline_profiles(p)
+    ref_gap = {}
+    for name in ("u_centerline", "v_centerline"):
+        ref = np.asarray(CAVITY_REF[name])
+        ref_gap[name] = float(np.abs(np.asarray(prof[name]) - ref).max()
+                              / np.abs(ref).max())
+    finite = bool(torch.isfinite(p.vort).all()) and bool(
+        torch.isfinite(p.vel).all())
+    emit("validation_cavity",
+         case=f"cavity Re=100 {ne}x{ne} ngl={ngl} f64 cg_rtol=1e-9 to "
+         f"t={t_end} (tests/test_cavity_re100.py's coarse march, cut)",
+         setup_s=setup_s, t=t, accepted_steps=steps,
+         ref_steps=CAVITY_REF["steps"], step_slack=CAVITY_STEP_SLACK,
+         wall_s=wall, s_per_step=wall / max(steps, 1),
+         rhs_evals=len(p.cg_log) // 2,
+         cg_iters=sum(int(i) for i, _ in p.cg_log), ref_gap=ref_gap,
+         ref_limit=CAVITY_PROFILE_LIMIT, summary=cav.summarize(prof),
+         k1_launches=k1, k1_applications=applications, finite=finite)
+    check(finite, "validation cavity: non-finite fields")
+    check(abs(t - t_end) < 1e-9, f"validation cavity: stopped at t={t}")
+    check(all(v <= CAVITY_PROFILE_LIMIT for v in ref_gap.values()),
+          f"validation cavity: profiles vs the JAX package's {ref_gap} > "
+          f"{CAVITY_PROFILE_LIMIT}")
+    check(abs(steps - CAVITY_REF["steps"]) <= CAVITY_STEP_SLACK,
+          f"validation cavity: {steps} accepted steps, the JAX package "
+          f"took {CAVITY_REF['steps']} (slack {CAVITY_STEP_SLACK})")
+    check(k1 == applications > 0, f"validation cavity: K1 launched {k1} "
+          f"times, the engine made {applications} applications")
+    return k1
+
+
+def _validation_ibm_cd(torch, dev):
+    """(b) The static cylinder's drag to t=30 at IBM_CD_NELEM, f32, against
+    the TPU artifact's tails. Returns K1's launches, summed."""
+    from pynama_tpu_torch.exp import ibm_cd
+    from pynama_tpu_torch.ibm import interpolation as I
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           IBM_CD_TPU_ART)) as f:
+        tpu = json.load(f)["runs"]
+    k1 = 0
+    for nelem in IBM_CD_NELEM:
+        ref = tpu[str(nelem)]
+        torch.cuda.synchronize()
+        p, rec = ibm_cd.run(nelem, IBM_CD_T_END, dev, torch.float32)
+        body_res = float((I.interp_H(p.ibm_ops, p.nodes_tab, p.w_tab, p.vel)
+                          - p._field(p.body.velocities())).abs().max())
+        ref_tail = ibm_cd.tail(ref["times"], ref["cd_reference_definition"],
+                               ref["t_reached"])
+        tails = {
+            "cd_phys": (rec["cd_phys_tail_mean"], ref["cd_phys_tail_mean"],
+                        ref["cd_phys_tail_std"]),
+            "cd_reference_definition": (
+                rec["cd_reference_definition_tail_mean"],
+                float(ref_tail.mean()), float(ref_tail.std()))}
+        finite = bool(torch.isfinite(p.vort).all()) and bool(
+            torch.isfinite(p.vel).all())
+        emit("validation_ibm_cd",
+             case=f"static cylinder {nelem}^2 ngl=3 f32 cg_rtol=1e-6 to "
+             f"t={IBM_CD_T_END} (exp/ibm_cd.py)",
+             **{k: rec[k] for k in ("h", "lag_points", "t_reached", "steps",
+                                    "setup_s", "wall_s", "s_per_step",
+                                    "cg_solves", "cg_iters", "k1_launches",
+                                    "k1_applications")},
+             tpu_steps=ref["steps"],
+             tails={k: {"card": a, "tpu_mean": b, "tpu_std": s}
+                    for k, (a, b, s) in tails.items()},
+             body_res=body_res, body_res_limit=IBM_BODY_RES_LIMIT,
+             finite=finite)
+        what = f"validation ibm_cd {nelem}^2"
+        check(finite, f"{what}: non-finite fields")
+        check(abs(rec["t_reached"] - IBM_CD_T_END) < 1e-9,
+              f"{what}: stopped at t={rec['t_reached']}")
+        for k, (a, b, s) in tails.items():
+            check(abs(a - b) <= s, f"{what}: {k} tail mean {a:.6g}, the "
+                  f"TPU's {b:.6g} +- {s:.3g}")
+        check(body_res <= IBM_BODY_RES_LIMIT, f"{what}: max|H v - v_body| "
+              f"{body_res:.3e} > {IBM_BODY_RES_LIMIT}")
+        check(rec["k1_launches"] == rec["k1_applications"] > 0,
+              f"{what}: K1 launched {rec['k1_launches']} times, the engine "
+              f"made {rec['k1_applications']} applications")
+        k1 += rec["k1_launches"]
+        del p
+    return k1
+
+
+def phase_validation(torch, dev):
+    """(a) the coarse cavity march, (b) the cylinder drag; returns K1's
+    launches by path."""
+    t_phase = time.perf_counter()
+    k1 = {"validation_cavity": _validation_cavity(torch, dev),
+          "validation_ibm_cd": _validation_ibm_cd(torch, dev)}
+    emit("validation", phase_s=time.perf_counter() - t_phase, **k1)
+    return k1
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3217,6 +3418,7 @@ def main() -> int:
     k1_paths.update(k1_more)
     k1_paths.update(phase_ibm(torch, dev))
     k1_paths.update(phase_sharded(torch, dev, problem, t_main))
+    k1_paths.update(phase_validation(torch, dev))
 
     record["launches"] = launches
     record["launches_by_path"] = k1_paths

@@ -1,6 +1,7 @@
-"""Measurement experiments: the port's counterparts of the JAX package's
-`exp/` drivers whose kernels split the fused apply's time, and of its
-solve-overhead driver.
+"""Measurement experiments and validation runs: the port's counterparts of
+the JAX package's `exp/` drivers whose kernels split the fused apply's
+time, of its solve-overhead driver, and of its two long-horizon physics
+validations.
 
 - `fused_decomp`: K3 `variant_apply` and K4 `plainmm_apply`, and a driver
   that times fused_apply against its parts (DSS pass, seam adds, the hand
@@ -8,6 +9,11 @@ solve-overhead driver.
 - `mm3x`: K2 `fused3x_apply`, the fused apply with a 3-pass split-bf16
   tensor-core GEMM, and a driver that checks and times it.
 - `solve_overhead`: the warm two-stage KLE solve in units of K applies.
+- `cavity_re100`: the 2D lid-driven cavity at Re=100 marched to steady
+  state, its centerline profiles (held against Ghia, Ghia & Shin 1982 and
+  the JAX package's artifact in tests/test_torch_cavity_re100.py).
+- `ibm_cd`: the static cylinder's drag histories at three resolutions
+  (held against the JAX package's in tests/test_torch_ibm_cd.py).
 
 The first two drivers share the helpers below: the same inputs (numpy, seed 0), the
 same chain `y = fn(x); x = y / (1 + max|y|)` ending in one host read, and
@@ -17,6 +23,9 @@ rounds. The device is explicit: asking for cuda without a card raises.
 from __future__ import annotations
 
 import argparse
+import json
+import os
+import subprocess
 import time
 
 import numpy as np
@@ -44,6 +53,29 @@ def parse_args(argv, prog: str, description: str, rounds: int):
 
 def device_name(dev: torch.device) -> str:
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def card_record(dev: torch.device) -> dict:
+    """The device a validation run ran on: torch's name for it and, on a
+    card, `nvidia-smi --query-gpu=name,power.limit` (a card set below its
+    maximum power runs slower under load)."""
+    if dev.type != "cuda":
+        return {"device": "cpu", "nvidia_smi": None}
+    smi = subprocess.run(
+        ["nvidia-smi", f"--id={dev.index or 0}",
+         "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    line = smi.stdout.strip() if smi.returncode == 0 else None
+    return {"device": torch.cuda.get_device_name(dev), "nvidia_smi": line}
+
+
+def write_json(path: str, doc: dict) -> None:
+    """Write doc to path through a temporary file, so that a run killed
+    while writing leaves the previous artifact whole."""
+    tmp = f"{path}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(doc, f)
+    os.replace(tmp, path)
 
 
 def inputs(ne: int, ngl: int, ncomp: int, dev: torch.device):

@@ -127,7 +127,9 @@ def test_port_never_imports_jax():
             "'pynama_tpu_torch.parallel.sharded_engine', "
             "'pynama_tpu_torch.parallel.multihost', "
             "'pynama_tpu_torch.parallel.comm', "
-            "'pynama_tpu_torch.ibm.sharded'} <= set(names), names; "
+            "'pynama_tpu_torch.ibm.sharded', "
+            "'pynama_tpu_torch.exp.cavity_re100', "
+            "'pynama_tpu_torch.exp.ibm_cd'} <= set(names), names; "
             "assert 'jax' not in sys.modules; "
             "assert 'pynama_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
