@@ -3,8 +3,8 @@ the main path, the analytic-function case, the FDM preconditioner, the
 global-layout path (direct, Operators, GMRES), the command line
 (run_case.py and its IO), gmsh meshes (quads and hexes, the gather DSS and
 the sum-factorized K), the immersed-boundary cases and, at full size,
-the exp/ decomposition runs, sharded runs and cut-down long-horizon
-validation runs.
+the exp/ decomposition runs, sharded runs, cut-down long-horizon
+validation runs and cut-down FS-stage analyses and measurement drivers.
 
     python3 chip_smoke.py
 
@@ -223,6 +223,25 @@ exits non-zero without the final result line:
             tail mean (exp/ibm_cd_r05.json), max|H v - v_body| after the
             last correction <= IBM_BODY_RES_LIMIT; in each, s/step, steps,
             CG iterations, and K1 launches == the engine's applications
+18. analyses
+            the port's twins of the JAX package's FS-stage analyses and
+            measurement drivers (pynama_tpu_torch/exp/), cut down: (a)
+            fs_spectrum.analyze at 3^3 and 4^3 ngl=4, float64 on the card
+            (cuSOLVER): every Jacobi and FDM kappa, k-drop kappa and census
+            count of the FS and main stages against the JAX package's
+            (FS_REF, tools/fs_reference.py) within FS_LIMIT, counts equal;
+            (b) fs_woodbury.analyze at 3^3: K = S + B^T B to
+            FS_K_CHECK_LIMIT, the G/I, G/diag, qp-block and elem-block CG
+            counts within FS_ITER_SLACK of the JAX package's (K/jacobi and
+            K/Sinv recorded beside its); (c) fs_walls.analyze at 2^3: every
+            variant's kappa within FS_LIMIT; K1 launched 0 times in each;
+            wall seconds and peak memory; (d) the five measurement drivers
+            at cut-down sizes and chains (ANALYSES_DRIVERS): fused_ab (12^3
+            ngl=4), ngl7_blocks (4^3 ngl=7), sumfact_chip, sumfact_roofline
+            and dss_gather_opt (5^3 hexes), each raising if its agreement
+            check fails, one line of its times each; K1 launches == the
+            applications fused_ab and ngl7_blocks made, 0 in the gmsh
+            drivers
 
 The last three lines are the card's name and power limit (nvidia-smi), the
 record of the four kernels as JSON (K1's also with `launches_by_path`: its
@@ -233,7 +252,8 @@ unstructured phase's gmsh parts (a)-(c) and (f), which must be 0, and its
 box-mesh sumfact rhs (d), the ibm phase's (a)-(d), `ibm_static` 0, the
 sharded phase's runs summed over their ranks, `sharded_overlap` and
 `sharded_hex` 0 (the plain DSS route, a gmsh mesh), the validation
-phase's `validation_cavity` and `validation_ibm_cd`;
+phase's `validation_cavity` and `validation_ibm_cd`, the analyses
+phase's `analyses_fused_ab` and `analyses_ngl7`;
 and `dss_pass_launches_by_path`: its DSS pass
 launched alone in (d)) and the result line {"ok": true, "device": {...}}.
 A kernel's `bound_ms` is the larger of the
@@ -462,6 +482,154 @@ CAVITY_STEP_SLACK = 0
 IBM_CD_NELEM = (35,)
 IBM_CD_T_END = 30.0
 IBM_CD_TPU_ART = "exp/ibm_cd_r05.json"
+# the analyses phase (18): the port's FS-stage analyses
+# (pynama_tpu_torch/exp/fs_*.py) in float64 on the card at cut-down sizes,
+# held against the JAX package's own numbers at those sizes, f64 on the
+# CPU (`python tools/fs_reference.py`, 95 s on 4 threads): per size the
+# fs_digest of each analysis. The card's eigensolvers (cuSOLVER) sum in
+# another order than the CPU's LAPACK. Two CPU runs that differ only so,
+# the port against the JAX package (the same command), differ by at most
+# 1.8e-12 (spectrum at 4^3; 1.0e-12 at 3^3, walls 9.4e-13) in any kappa,
+# k-drop kappa or walls variant's kappa, with equal census and CG counts;
+# FS_LIMIT keeps ~100x over that. A census count may differ only where an
+# eigenvalue lies within FS_LIMIT of its threshold (the record's margin:
+# >= 4.5e-5 at these sizes). The woodbury CG counts follow the summation
+# order: on the CPU the JAX package alone takes G/I 212 or 214 at 3^3 with
+# 1 or 2 BLAS threads (DESIGN's 214), the port 212; at 2^3 the G counts of
+# the pair differ by up to 1 and K/jacobi's by 3 (258 / 261). So the G
+# counts (the ones the round-5 verdict reads) are held within FS_ITER_SLACK
+# of the JAX package's, and the K counts are recorded beside its own
+FS_ITER_SLACK = 2
+FS_SPECTRUM_NE = (3, 4)
+FS_WALLS_NE = 2
+FS_WOODBURY_NE = 3
+FS_REF = {
+    'spectrum': {
+        3: {
+            'FS': {
+                'jacobi': {
+                    'kappa': 1689.5663263859833,
+                    'kdrop': [1689.5663263859833, 1523.9874737457844,
+                              1277.389010188945, 1015.6079601962456,
+                              749.3170372079157, 433.56483396697683,
+                              124.42064566343572, 61.40223995890048,
+                              32.193268503084596],
+                    'low': [6, 73, 108, 267],
+                    'high': [570, 56],
+                    'margin': 0.00037717162203643184},
+                'fdm': {
+                    'kappa': 1358.755040715516,
+                    'kdrop': [1358.755040715516, 1140.6854418960381,
+                              1037.4983307073235, 728.3875037643251,
+                              383.24431731101447, 60.09745263600026,
+                              40.040867873549104, 28.31341100976546,
+                              20.15141612487593],
+                    'low': [16, 38, 47, 223],
+                    'high': [145, 0],
+                    'margin': 0.0006517645936311434}},
+            'MAIN': {
+                'jacobi': {
+                    'kappa': 119.43018582441447,
+                    'kdrop': [119.43018582441447, 111.85959773728507,
+                              97.21279520682987, 68.85293023892504,
+                              54.35596706424407, 41.532717116157556,
+                              31.86345963519139, 24.759062572474324,
+                              16.645438685579574],
+                    'low': [0, 0, 5, 60],
+                    'high': [337, 1],
+                    'margin': 0.0011282327812996984},
+                'fdm': {
+                    'kappa': 44.65936029232679,
+                    'kdrop': [44.65936029232679, 42.06902266305341,
+                              37.34212903156483, 27.95264535532528,
+                              24.925776093198923, 23.12878781883829,
+                              19.712762262077373, 15.29276596106573,
+                              9.84747954765525],
+                    'low': [0, 0, 0, 37],
+                    'high': [38, 0],
+                    'margin': 0.0004972623309569268}}},
+        4: {
+            'FS': {
+                'jacobi': {
+                    'kappa': 1680.4282361325445,
+                    'kdrop': [1680.4282361325445, 1527.1057840692122,
+                              1390.097145266266, 1112.0258125541145,
+                              968.4523028708871, 563.2170914172433,
+                              272.34005468269544, 132.82955904368606,
+                              63.38004084322279],
+                    'low': [7, 125, 254, 601],
+                    'high': [1346, 110],
+                    'margin': 0.00023474458839722878},
+                'fdm': {
+                    'kappa': 1221.4900897364817,
+                    'kdrop': [1221.4900897364817, 1085.737810440143,
+                              1018.1837185265514, 822.4207156605792,
+                              573.6269991642837, 79.52724835201307,
+                              54.673428456164274, 41.72926170339614,
+                              27.862796020681337],
+                    'low': [21, 50, 77, 494],
+                    'high': [302, 0],
+                    'margin': 4.5207331900387615e-05}},
+            'MAIN': {
+                'jacobi': {
+                    'kappa': 237.12691771239201,
+                    'kdrop': [237.12691771239201, 223.94274040945675,
+                              181.72758470829262, 136.7791314386104,
+                              106.29988648982673, 83.1404747572363,
+                              60.93993234233374, 42.127243325236485,
+                              31.404689339205216],
+                    'low': [0, 0, 23, 198],
+                    'high': [932, 10],
+                    'margin': 0.0018174202354973579},
+                'fdm': {
+                    'kappa': 56.90160316088722,
+                    'kdrop': [56.90160316088722, 54.27465523888948,
+                              51.003412859326865, 48.15968110644199,
+                              34.38920802066557, 32.302782223460454,
+                              26.363298464381604, 22.318448444603458,
+                              18.140432911914672],
+                    'low': [0, 0, 0, 148],
+                    'high': [120, 0],
+                    'margin': 0.00029165677051046224}}}},
+    'walls': {
+        2: {
+            'jac': 1800.1777207449088,
+            'fdm': 1698.0463651942498,
+            'jac+ww': 973.8108526034055,
+            'fdm+ww': 771.8894042014173,
+            'fdm+ww1': 6.20720249213158,
+            'fdm+schur': 6148.461381158463,
+            'jac+schur': 8146.2402707161145,
+            'fdm+6sl(t3)': 8.594287150747453,
+            'jac+6sl(t3)': 10.54482390425316,
+            'fdm+6slF(t3)': 1558.7974811378608,
+            'jac+6slF(t3)': 1501.5270294701804,
+            'fdm+6sl(t6)': 1.8700919007850114,
+            'jac+6sl(t6)': 1.9655082087834237,
+            'fdm+6slF(t6)': 1698.0463651958612,
+            'jac+6slF(t6)': 1608.3582139762666}},
+    'woodbury': {
+        3: {
+            'K/jacobi': 273,
+            'K/Sinv': 223,
+            'G/I': 212,
+            'G/diag': 109,
+            'G/qp-block(4)': 129,
+            'G/elem-block(108)': 132}}}
+FS_LIMIT = 2e-10
+# K = S + B^T B, relative to max|K|: round-off of one f64 product
+FS_K_CHECK_LIMIT = 1e-13
+# the five measurement drivers at cut-down sizes and chain lengths
+# (pynama_tpu_torch/exp/), each with its own agreement check
+ANALYSES_DRIVERS = (
+    ("fused_ab", ["1", "--ne", "12", "--n1", "50", "--target-s", "0.2"]),
+    ("ngl7_blocks", ["--ne", "4", "--nit", "200", "--rounds", "2"]),
+    ("sumfact_chip", ["5", "--nit", "200", "20", "--rounds", "2"]),
+    ("sumfact_roofline", ["5", "--n1", "20", "--target-s", "0.2",
+                          "--rounds", "2"]),
+    ("dss_gather_opt", ["5", "--n1", "20", "--target-s", "0.2",
+                        "--rounds", "2"]),
+)
 # the decomposition drivers: the flagship shape, depth cut to 200 applies
 # per chain and 3 rounds
 DRIVER_ARGS = ["24", "4", "--nit", "200", "--rounds", "3"]
@@ -602,63 +770,9 @@ def fsns_config(nelem, ngl, start, max_steps):
 
 
 def write_hex_msh(path, nx, ny, nz, distort):
-    """bench.py's _write_hex_msh, to `path`: an nx x ny x nz grid of hexes
-    on [0,1]^3 as MSH 2.2, interior vertices moved by uniform(-1, 1) *
-    distort / nx per coordinate from numpy's default_rng(0), boundary quads
-    in the physical groups down/right/up/left/back/front."""
-    xs = [np.linspace(0, 1, n + 1) for n in (nx, ny, nz)]
-    X, Y, Z = np.meshgrid(*xs, indexing="ij")
-    verts = np.stack([X.ravel(), Y.ravel(), Z.ravel()], 1)
-    rng = np.random.default_rng(0)
-    interior = np.all((verts > 1e-12) & (verts < 1 - 1e-12), axis=1)
-    verts[interior] += (rng.uniform(-1, 1, (int(interior.sum()), 3))
-                        * distort / nx)
-
-    def vid(i, j, k):
-        return (i * (ny + 1) + j) * (nz + 1) + k
-
-    hexes = [[vid(i, j, k), vid(i + 1, j, k), vid(i + 1, j + 1, k),
-              vid(i, j + 1, k), vid(i, j, k + 1), vid(i + 1, j, k + 1),
-              vid(i + 1, j + 1, k + 1), vid(i, j + 1, k + 1)]
-             for i in range(nx) for j in range(ny) for k in range(nz)]
-    names = ["down", "right", "up", "left", "back", "front"]
-    quads = {
-        "down": [[vid(i, 0, k), vid(i + 1, 0, k), vid(i + 1, 0, k + 1),
-                  vid(i, 0, k + 1)] for i in range(nx) for k in range(nz)],
-        "up": [[vid(i, ny, k), vid(i + 1, ny, k), vid(i + 1, ny, k + 1),
-                vid(i, ny, k + 1)] for i in range(nx) for k in range(nz)],
-        "left": [[vid(0, j, k), vid(0, j + 1, k), vid(0, j + 1, k + 1),
-                  vid(0, j, k + 1)] for j in range(ny) for k in range(nz)],
-        "right": [[vid(nx, j, k), vid(nx, j + 1, k), vid(nx, j + 1, k + 1),
-                   vid(nx, j, k + 1)] for j in range(ny) for k in range(nz)],
-        "back": [[vid(i, j, 0), vid(i + 1, j, 0), vid(i + 1, j + 1, 0),
-                  vid(i, j + 1, 0)] for i in range(nx) for j in range(ny)],
-        "front": [[vid(i, j, nz), vid(i + 1, j, nz), vid(i + 1, j + 1, nz),
-                   vid(i, j + 1, nz)] for i in range(nx) for j in range(ny)],
-    }
-    with open(path, "w") as f:
-        f.write("$MeshFormat\n2.2 0 8\n$EndMeshFormat\n$PhysicalNames\n"
-                f"{len(names) + 1}\n")
-        for t, n in enumerate(names):
-            f.write(f'2 {t + 1} "{n}"\n')
-        f.write(f'3 {len(names) + 1} "volume"\n$EndPhysicalNames\n$Nodes\n'
-                f"{len(verts)}\n")
-        for i, v in enumerate(verts):
-            f.write(f"{i + 1} {v[0]} {v[1]} {v[2]}\n")
-        f.write("$EndNodes\n$Elements\n")
-        f.write(f"{sum(len(v) for v in quads.values()) + len(hexes)}\n")
-        eid = 1
-        for t, n in enumerate(names):
-            for q in quads[n]:
-                f.write(f"{eid} 3 2 {t + 1} {t + 1} "
-                        + " ".join(str(x + 1) for x in q) + "\n")
-                eid += 1
-        for h in hexes:
-            f.write(f"{eid} 5 2 {len(names) + 1} {len(names) + 1} "
-                    + " ".join(str(x + 1) for x in h) + "\n")
-            eid += 1
-        f.write("$EndElements\n")
-    return path
+    """bench.py's hex mesh writer (pynama_tpu_torch.exp.write_hex_msh)."""
+    from pynama_tpu_torch.exp import write_hex_msh as write
+    return write(path, nx, ny, nz, distort)
 
 
 def write_quad_msh(path, nx, ny, distort):
@@ -3377,6 +3491,27 @@ def _validation_ibm_cd(torch, dev):
     return k1
 
 
+def fs_digest(part, rec):
+    """The numbers of an FS-stage analysis that the analyses phase holds
+    against the JAX package's (FS_REF), from a record of
+    pynama_tpu_torch.exp.fs_spectrum / fs_walls / fs_woodbury `analyze`:
+    spectrum, per stage and preconditioner, kappa, the k-drop table's
+    kappas, the low- and high-mode census and its margin; walls, each
+    variant's kappa; woodbury, the CG iteration counts."""
+    if part == "spectrum":
+        return {stage: {pc: {"kappa": r["kappa"],
+                             "kdrop": [v[0] for v in r["kdrop"].values()],
+                             "low": list(r["low"].values()),
+                             "high": list(r["high"].values()),
+                             "margin": r["margin"]}
+                        for pc, r in ((pc, rec[stage][pc])
+                                      for pc in ("jacobi", "fdm"))}
+                for stage in ("FS", "MAIN")}
+    if part == "walls":
+        return {tag: v["kappa"] for tag, v in rec["variants"].items()}
+    return dict(rec["iters"])
+
+
 def phase_validation(torch, dev):
     """(a) the coarse cavity march, (b) the cylinder drag; returns K1's
     launches by path."""
@@ -3384,6 +3519,92 @@ def phase_validation(torch, dev):
     k1 = {"validation_cavity": _validation_cavity(torch, dev),
           "validation_ibm_cd": _validation_ibm_cd(torch, dev)}
     emit("validation", phase_s=time.perf_counter() - t_phase, **k1)
+    return k1
+
+
+def _fs_check(part, ne, card):
+    """Hold an analysis's fs_digest on the card against FS_REF."""
+    from pynama_tpu_torch.exp.fs_spectrum import record_gap
+    ref = FS_REF[part][ne]
+    gap, differ = record_gap(card, ref)
+    what = f"analyses {part} {ne}^3"
+    if part == "woodbury":
+        check(all(abs(card[k] - ref[k]) <= FS_ITER_SLACK
+                  for k in ref if k.startswith("G/")),
+              f"{what}: CG iterations {card} against the JAX package's "
+              f"{ref} (slack {FS_ITER_SLACK} on G's)")
+        return gap, differ
+    check(gap <= FS_LIMIT, f"{what}: relative gap {gap:.3e} to the JAX "
+          f"package's > {FS_LIMIT}")
+    if part == "spectrum":
+        margin = min(card[s][pc]["margin"] for s in card for pc in card[s])
+        check(not differ or margin <= FS_LIMIT,
+              f"{what}: census {differ} differs with every eigenvalue "
+              f"{margin:.3e} from its threshold")
+    return gap, differ
+
+
+def phase_analyses(torch, dev):
+    """(a)-(c) the FS-stage analyses in f64 against the JAX package's
+    numbers, K1 never launched; (d) the measurement drivers at cut-down
+    sizes, each with its agreement check. Returns K1's launches in
+    fused_ab and ngl7_blocks."""
+    import io
+    from pynama_tpu_torch.exp import (dss_gather_opt, fs_spectrum, fs_walls,
+                                      fs_woodbury, fused_ab, ngl7_blocks,
+                                      sumfact_chip, sumfact_roofline)
+    from pynama_tpu_torch.ops.fused import fused_apply
+
+    t_phase = time.perf_counter()
+    runs = [("spectrum", ne, fs_spectrum) for ne in FS_SPECTRUM_NE] + [
+        ("woodbury", FS_WOODBURY_NE, fs_woodbury),
+        ("walls", FS_WALLS_NE, fs_walls)]
+    for part, ne, analysis in runs:
+        fused_apply.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rec = analysis.analyze(ne, 4, device=dev, dtype=torch.float64)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        gap, differ = _fs_check(part, ne, fs_digest(part, rec))
+        extra = {"k_check": rec["k_check"], "iters": rec["iters"],
+                 "ref_iters": FS_REF[part][ne],
+                 "iter_slack": FS_ITER_SLACK} if part == "woodbury" else {}
+        emit(f"analyses_{part}", ne=ne, ngl=4, dtype="float64", wall_s=wall,
+             peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+             ref_gap=gap, limit=FS_LIMIT, counts_differ=differ,
+             k1_launches=fused_apply.launches, **extra)
+        check(fused_apply.launches == 0, f"analyses {part}: K1 launched "
+              f"{fused_apply.launches} times")
+        if part == "woodbury":
+            check(rec["k_check"] <= FS_K_CHECK_LIMIT, f"analyses woodbury: "
+                  f"K = S + B^T B to {rec['k_check']:.3e} > "
+                  f"{FS_K_CHECK_LIMIT}")
+    k1 = {}
+    drivers = {"fused_ab": fused_ab, "ngl7_blocks": ngl7_blocks,
+               "sumfact_chip": sumfact_chip,
+               "sumfact_roofline": sumfact_roofline,
+               "dss_gather_opt": dss_gather_opt}
+    for name, argv in ANALYSES_DRIVERS:
+        fused_apply.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = drivers[name].main(argv)
+        emit(f"analyses_{name}", argv=argv, wall_s=time.perf_counter() - t0,
+             k1_launches=fused_apply.launches, **out)
+        # the gmsh drivers run no box-mesh operator: K1 stays at 0
+        expected = out.get("k1_applications", 0)
+        check(fused_apply.launches == expected, f"analyses {name}: K1 "
+              f"launched {fused_apply.launches} times, the driver made "
+              f"{expected} applications")
+        key = {"fused_ab": "analyses_fused_ab",
+               "ngl7_blocks": "analyses_ngl7"}.get(name)
+        if key:
+            check(expected > 0, f"analyses {name}: no K1 application")
+            k1[key] = expected
+    emit("analyses", phase_s=time.perf_counter() - t_phase, **k1)
     return k1
 
 
@@ -3419,6 +3640,7 @@ def main() -> int:
     k1_paths.update(phase_ibm(torch, dev))
     k1_paths.update(phase_sharded(torch, dev, problem, t_main))
     k1_paths.update(phase_validation(torch, dev))
+    k1_paths.update(phase_analyses(torch, dev))
 
     record["launches"] = launches
     record["launches_by_path"] = k1_paths
