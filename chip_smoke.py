@@ -4,7 +4,8 @@ global-layout path (direct, Operators, GMRES), the command line
 (run_case.py and its IO), gmsh meshes (quads and hexes, the gather DSS and
 the sum-factorized K), the immersed-boundary cases and, at full size,
 the exp/ decomposition runs, sharded runs, cut-down long-horizon
-validation runs and cut-down FS-stage analyses and measurement drivers.
+validation runs, cut-down FS-stage analyses and measurement drivers, and
+the Schwarz preconditioner.
 
     python3 chip_smoke.py
 
@@ -242,6 +243,23 @@ exits non-zero without the final result line:
             check fails, one line of its times each; K1 launches == the
             applications fused_ab and ngl7_blocks made, 0 in the gmsh
             drivers
+19. schwarz the reference's pc="schwarz" (element-wise additive Schwarz
+            mixed with Jacobi, its element pseudo-inverse KinvT built on
+            the host): (a) the flagship config (24^3 ngl=4, f32, CG rtol
+            1e-6, maxiter SCHWARZ_MAXITER) set up and stepped once from
+            rest under pc="jacobi" and under pc="schwarz": setup, s/step,
+            FS and main CG iterations and their Schwarz/Jacobi ratios, K1
+            launches == the step's applications (under Schwarz one more K1
+            call per CG-loop application and one per solve: the
+            preconditioner's DSS(t @ KinvT)), no solve at the cap; (b) K1
+            with KinvT in place of K^T at that shape, on the input the
+            preconditioner gives it, against its plain version (f32 with
+            the engine's KinvT, f64 with the host's, F32_LIMIT /
+            F64_LIMIT, duplicate slots bitwise equal), event ms beside
+            K1 with K^T, the plain version and the bound; (c) run_case
+            -pc schwarz on cavity.yaml at its own size cut to 1 step, K1
+            launches == expected; (d) the 3^3 ngl=3 cavity under Schwarz,
+            f64, GPU against CPU within PARITY_LIMIT (as phase 4)
 
 The last three lines are the card's name and power limit (nvidia-smi), the
 record of the four kernels as JSON (K1's also with `launches_by_path`: its
@@ -253,7 +271,8 @@ box-mesh sumfact rhs (d), the ibm phase's (a)-(d), `ibm_static` 0, the
 sharded phase's runs summed over their ranks, `sharded_overlap` and
 `sharded_hex` 0 (the plain DSS route, a gmsh mesh), the validation
 phase's `validation_cavity` and `validation_ibm_cd`, the analyses
-phase's `analyses_fused_ab` and `analyses_ngl7`;
+phase's `analyses_fused_ab` and `analyses_ngl7`, the schwarz phase's
+`schwarz` (the Schwarz step of (a)) and `schwarz_cli`;
 and `dss_pass_launches_by_path`: its DSS pass
 launched alone in (d)) and the result line {"ok": true, "device": {...}}.
 A kernel's `bound_ms` is the larger of the
@@ -621,6 +640,11 @@ FS_LIMIT = 2e-10
 FS_K_CHECK_LIMIT = 1e-13
 # the five measurement drivers at cut-down sizes and chain lengths
 # (pynama_tpu_torch/exp/), each with its own agreement check
+# the Schwarz phase's CG cap, above phase_main's 1000: Schwarz takes more
+# iterations than Jacobi, 2.7x in the JAX package's measurement and a
+# ratio that grows with the mesh on the port's CPU runs at 4^3, 6^3, 10^3
+# ngl=4 (FS stage 3.0x, 4.3x, 6.1x: 2,420 iterations a solve at 10^3)
+SCHWARZ_MAXITER = 20000
 ANALYSES_DRIVERS = (
     ("fused_ab", ["1", "--ne", "12", "--n1", "50", "--target-s", "0.2"]),
     ("ngl7_blocks", ["--ne", "4", "--nit", "200", "--rounds", "2"]),
@@ -1546,62 +1570,68 @@ def parity_cases(tmp):
     ]
 
 
-def phase_parity(torch, dev):
+def _parity_case(torch, dev, label, cfg, opts, tol):
+    """One GPU-vs-CPU parity case (see parity_cases): one rhs and the
+    transient in f64 on each device, checked and printed."""
     from pynama_tpu_torch.engine.local_engine import rhs_local
     from pynama_tpu_torch.run_case import make_problem
 
+    out = {}
+    for name, device in (("gpu", dev), ("cpu", torch.device("cpu"))):
+        p = make_problem(cfg, device=device, dtype=torch.float64, **opts)
+        p.setUp()
+        rng = np.random.default_rng(0)
+        vort = rng.standard_normal((p.mesh.n_nodes, p.dim_w))
+        ops = p.engine_ops
+        if ops is None or "bodies" in cfg:
+            # the global layout (direct solve; the IBM cases' rhs)
+            f, _ = p.rhs(p.start_time, vort, p.vel * 0.0)
+        else:
+            vel = torch.zeros(
+                (p.mesh.n_cells, p.mesh.nnode_el * p.dim),
+                dtype=torch.float64, device=device)
+            f, _ = rhs_local(ops, p.start_time, p.to_local(vort), vel)
+        t_end, steps = p.start_solver(atol=tol, rtol=tol, dt0=1e-3)
+        out[name] = dict(f=f.cpu().numpy(), vort=p.vort.cpu().numpy(),
+                         vel=p.vel.cpu().numpy(), t=t_end, steps=steps,
+                         solver=p.solver_method,
+                         pc=None if ops is None else ops.pc,
+                         krylov=None if ops is None else ops.krylov,
+                         sumfact=None if ops is None
+                         else ops.sumfact is not None)
+    rel = {k: float(np.abs(out["gpu"][k] - out["cpu"][k]).max()
+                    / np.abs(out["cpu"][k]).max())
+           for k in ("f", "vort", "vel")}
+    emit("parity", case=label, rel_err=rel, limit=PARITY_LIMIT,
+         stepper_tol=tol, solver=out["gpu"]["solver"],
+         krylov=out["gpu"]["krylov"],
+         pc=out["gpu"]["pc"], steps_gpu=out["gpu"]["steps"],
+         steps_cpu=out["cpu"]["steps"], t_gpu=out["gpu"]["t"],
+         t_cpu=out["cpu"]["t"])
+    direct = opts["solver"] == "direct"
+    want = dict(solver=opts["solver"],
+                pc=None if direct else opts.get("pc", "jacobi"),
+                krylov=None if direct else opts["solver"])
+    if "gmsh-file" in cfg["domain"]:
+        want["sumfact"] = True
+    for k, v in want.items():
+        check(out["gpu"][k] == out["cpu"][k] == v,
+              f"parity {label}: {k} {out['gpu'][k]}, want {v}")
+    want_steps = cfg["time-solver"]["max-steps"]
+    check(out["gpu"]["steps"] == out["cpu"]["steps"] == want_steps,
+          f"parity {label}: accepted steps gpu {out['gpu']['steps']} "
+          f"cpu {out['cpu']['steps']} (want {want_steps})")
+    check(all(v <= PARITY_LIMIT for v in rel.values()),
+          f"parity {label}: GPU vs CPU relative error {rel} > "
+          f"{PARITY_LIMIT}")
+    return rel
+
+
+def phase_parity(torch, dev):
     tmp = tempfile.mkdtemp(prefix="parity-")
     try:
-        for label, cfg, opts, tol in parity_cases(tmp):
-            out = {}
-            for name, device in (("gpu", dev), ("cpu", torch.device("cpu"))):
-                p = make_problem(cfg, device=device, dtype=torch.float64,
-                                 **opts)
-                p.setUp()
-                rng = np.random.default_rng(0)
-                vort = rng.standard_normal((p.mesh.n_nodes, p.dim_w))
-                ops = p.engine_ops
-                if ops is None or "bodies" in cfg:
-                    # the global layout (direct solve; the IBM cases' rhs)
-                    f, _ = p.rhs(p.start_time, vort, p.vel * 0.0)
-                else:
-                    vel = torch.zeros(
-                        (p.mesh.n_cells, p.mesh.nnode_el * p.dim),
-                        dtype=torch.float64, device=device)
-                    f, _ = rhs_local(ops, p.start_time, p.to_local(vort), vel)
-                t_end, steps = p.start_solver(atol=tol, rtol=tol, dt0=1e-3)
-                out[name] = dict(f=f.cpu().numpy(), vort=p.vort.cpu().numpy(),
-                                 vel=p.vel.cpu().numpy(), t=t_end, steps=steps,
-                                 solver=p.solver_method,
-                                 pc=None if ops is None else ops.pc,
-                                 krylov=None if ops is None else ops.krylov,
-                                 sumfact=None if ops is None
-                                 else ops.sumfact is not None)
-            rel = {k: float(np.abs(out["gpu"][k] - out["cpu"][k]).max()
-                            / np.abs(out["cpu"][k]).max())
-                   for k in ("f", "vort", "vel")}
-            emit("parity", case=label, rel_err=rel, limit=PARITY_LIMIT,
-                 stepper_tol=tol, solver=out["gpu"]["solver"],
-                 krylov=out["gpu"]["krylov"],
-                 pc=out["gpu"]["pc"], steps_gpu=out["gpu"]["steps"],
-                 steps_cpu=out["cpu"]["steps"], t_gpu=out["gpu"]["t"],
-                 t_cpu=out["cpu"]["t"])
-            direct = opts["solver"] == "direct"
-            want = dict(solver=opts["solver"],
-                        pc=None if direct else opts.get("pc", "jacobi"),
-                        krylov=None if direct else opts["solver"])
-            if "gmsh-file" in cfg["domain"]:
-                want["sumfact"] = True
-            for k, v in want.items():
-                check(out["gpu"][k] == out["cpu"][k] == v,
-                      f"parity {label}: {k} {out['gpu'][k]}, want {v}")
-            want_steps = cfg["time-solver"]["max-steps"]
-            check(out["gpu"]["steps"] == out["cpu"]["steps"] == want_steps,
-                  f"parity {label}: accepted steps gpu {out['gpu']['steps']} "
-                  f"cpu {out['cpu']['steps']} (want {want_steps})")
-            check(all(v <= PARITY_LIMIT for v in rel.values()),
-                  f"parity {label}: GPU vs CPU relative error {rel} > "
-                  f"{PARITY_LIMIT}")
+        for case in parity_cases(tmp):
+            _parity_case(torch, dev, *case)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3164,18 +3194,28 @@ def phase_ibm(torch, dev):
     check(bitwise, "ibm (e): two spread_S calls differ")
     return k1
 
-def _k1_expected(stats, is_ns, accepts=0, fused=True):
+def _k1_expected(stats, is_ns, accepts=0, fused=True, pc="jacobi"):
     """K1's launches on one rank, from its CG log: per masked solve Rw,
     apply_K(vc) and the A0 residual (3) plus its loop applications; per
     KLE solve of a no-slip problem the curl between the stages; per rhs
     srt, div_srt and curl (3); per IBM accept (`accepts`) the curl after
-    the correction (1). 0 on the plain route (fused=False)."""
+    the correction (1); under pc="schwarz" one preconditioner application
+    per loop application and one before the loop (CG's z0, GMRES's
+    M_inv(b)). 0 on the plain route (fused=False)."""
     if not fused:
         return 0
     n = len(stats["cg_iters"])
     n_kle = n // 2 if is_ns else n
+    loops = sum(stats["cg_applies"])
+    schwarz = n + loops if pc == "schwarz" else 0
     return (3 * n + (n_kle if is_ns else 0) + 3 * (n_kle - accepts)
-            + accepts + sum(stats["cg_applies"]))
+            + accepts + loops + schwarz)
+
+
+def _cg_stats(cg_log):
+    """A Problem's cg_log as _k1_expected's stats."""
+    return {"cg_iters": [int(it) for it, _ in cg_log],
+            "cg_applies": [n for _, n in cg_log]}
 
 
 def _rank_rows(stats, expected):
@@ -3608,6 +3648,193 @@ def phase_analyses(torch, dev):
     return k1
 
 
+def _schwarz_step(torch, dev, pc):
+    """The flagship config (24^3 ngl=4, f32, CG rtol 1e-6) set up under
+    `pc` and stepped once, K1's launches counted from 0 around the step
+    and checked against the CG log. Returns (row, problem)."""
+    from pynama_tpu_torch.cases import Problem
+    from pynama_tpu_torch.ops.fused import fused_apply
+
+    cfg = cavity_config((24, 24, 24), 4, 0.5, 0.01, [2, 0, 0], 1, 1.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    p = Problem(cfg, device=dev, dtype=torch.float32, solver="cg",
+                cg_rtol=1e-6, cg_maxiter=SCHWARZ_MAXITER, pc=pc)
+    p.setUp()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(p.engine_ops.pc == pc and p.engine_ops.fused,
+          f"schwarz: built pc={p.engine_ops.pc}, asked {pc} on K1")
+    p.cg_log = []
+    fused_apply.launches = 0
+    t0 = time.perf_counter()
+    t_end, steps = p.start_solver(dt0=1e-3)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = fused_apply.launches
+    stats = _cg_stats(p.cg_log)
+    expected = _k1_expected(stats, True, pc=pc)
+    iters = stats["cg_iters"]
+    finite = bool(torch.isfinite(p.vort).all()) and bool(
+        torch.isfinite(p.vel).all())
+    row = dict(setup_s=setup_s, setup_phases_s=p.setup_phases,
+               accepted_steps=steps, t_end=t_end, s_per_step=run_s / max(
+                   steps, 1), rhs_evals=len(iters) // 2,
+               cg_iters_fs=sum(iters[0::2]), cg_iters_main=sum(iters[1::2]),
+               cg_iters_fs_main=[iters[i:i + 2]
+                                 for i in range(0, len(iters), 2)],
+               cg_loop_applies=sum(stats["cg_applies"]),
+               fused_apply_launches=launches, expected_launches=expected,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+               finite=finite)
+    check(steps == 1, f"schwarz {pc}: accepted {steps} steps, want 1")
+    check(finite, f"schwarz {pc}: non-finite vort/vel")
+    check(max(iters) < SCHWARZ_MAXITER, f"schwarz {pc}: a CG solve ran to "
+          f"maxiter {SCHWARZ_MAXITER}")
+    check(launches > 0 and launches == expected,
+          f"schwarz {pc}: fused_apply launched {launches} times, the step "
+          f"made {expected} operator applications")
+    return row, p
+
+
+def _schwarz_kernel(torch, p):
+    """K1 with the Schwarz matrix KinvT in place of K^T at the flagship
+    shape, on the input the preconditioner gives it (free·r·inv_mult),
+    against its plain version: f32 with the engine's KinvT, f64 with the
+    host pseudo-inverse in f64; event times of both in f32 beside the
+    bound."""
+    from pynama_tpu_torch.engine.local_engine import element_pinv_T
+    from pynama_tpu_torch.ops.fused import fused_apply, fused_apply_ref
+
+    ops = p.engine_ops
+    nelem, ngl, dim = ops.nelem, ops.ngl, ops.dim
+    rng = np.random.default_rng(0)
+    r = p.to_local(rng.standard_normal((p.mesh.n_nodes, dim)))
+    out = {}
+    for dtype, limit, matT in (
+            (torch.float32, F32_LIMIT, ops.KinvT),
+            (torch.float64, F64_LIMIT, torch.as_tensor(
+                element_pinv_T(p._em.K), dtype=torch.float64,
+                device=r.device).contiguous())):
+        dname = str(dtype).split(".")[-1]
+        t = (ops.free_fs * r * ops.lay_v.inv_mult).to(dtype).contiguous()
+        y, bnd = fused_apply(t, matT, nelem, ngl, dim)
+        yr, br = fused_apply_ref(t, matT, nelem, ngl, dim)
+        torch.cuda.synchronize()
+        scale = float(yr.abs().max())
+        row = dict(max_abs_err=float((y - yr).abs().max()),
+                   bnd_abs_err=float((bnd - br).abs().max()),
+                   limit=limit,
+                   dup_spread=_dup_spread(torch, y, p.mesh.cell_nodes, dim))
+        row["rel_err"] = row["max_abs_err"] / scale
+        row["bnd_rel_err"] = row["bnd_abs_err"] / scale
+        what = f"schwarz: K1 with KinvT {dname} {matT.shape[0]}->" \
+            f"{matT.shape[1]}"
+        check(row["rel_err"] <= limit, f"{what}: rel err "
+              f"{row['rel_err']:.3e} > {limit}")
+        check(row["bnd_rel_err"] <= limit, f"{what}: bnd rel err "
+              f"{row['bnd_rel_err']:.3e} > {limit}")
+        check(row["dup_spread"] == 0.0, f"{what}: duplicate slots differ "
+              f"by {row['dup_spread']:.3e}")
+        if dtype == torch.float32:
+            E, N = t.shape[0], matT.shape[1]
+            row["ms"] = _median_ms(torch, lambda: fused_apply(
+                t, matT, nelem, ngl, dim))
+            row["plain_ms"] = _median_ms(torch, lambda: fused_apply_ref(
+                t, matT, nelem, ngl, dim))
+            row["k1_K_ms"] = _median_ms(torch, lambda: fused_apply(
+                t, ops.KT, nelem, ngl, dim))
+            row["bound_ms"], row["bound_by"] = _gemm_bound(
+                E, t.shape[1], N, dname,
+                2 * (E // nelem[0]) * (N // ngl) * t.element_size())
+        out[dname] = row
+    return out
+
+
+def _schwarz_cli(torch, dev):
+    """run_case -pc schwarz on the card: cavity.yaml at its own size cut to
+    1 step (a JSON copy), f32 CG rtol 1e-6, in a directory of its own; K1
+    launches against its CG log."""
+    from pynama_tpu_torch import run_case
+    from pynama_tpu_torch.ops.fused import fused_apply
+
+    hdf5 = _importable("h5py")
+    cwd, tmp = os.getcwd(), tempfile.mkdtemp(prefix="schwarz-cli-")
+    try:
+        os.chdir(tmp)
+        cfg = run_case.load_case("cavity")
+        cfg["time-solver"]["max-steps"] = 1
+        with open("cavity-1.yaml", "w") as f:
+            json.dump(cfg, f)
+        argv = ["-case", "cavity-1.yaml", "-log", "WARNING", "-device",
+                "cuda", "-dtype", "float32", "-solver", "cg", "-cg-rtol",
+                "1e-6", "-maxiter", str(SCHWARZ_MAXITER), "-pc", "schwarz"]
+        torch.cuda.synchronize()
+        fused_apply.launches = 0
+        t0 = time.perf_counter()
+        with _cli_probe(torch, run_case):
+            p, t_end, steps = _cli_production(run_case, argv, hdf5)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fused_apply.launches
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    stats = _cg_stats(p.cg_log)
+    expected = _k1_expected(stats, True, pc="schwarz")
+    finite = bool(torch.isfinite(p.vort).all())
+    row = dict(config="cavity.yaml 30x10x10 ngl=3 f32 -solver cg -pc "
+               "schwarz -cg-rtol 1e-6, depth cut to 1 step",
+               io_route="hdf5" if hdf5 else "binary", pc=p.engine_ops.pc,
+               accepted_steps=steps,
+               t_end=t_end, wall_s=wall, run_s=p.run_s,
+               cg_iters=stats["cg_iters"], k1_launches=launches,
+               k1_expected=expected, finite=finite)
+    check(p.engine_ops.pc == "schwarz",
+          f"schwarz cli: pc {p.engine_ops.pc}")
+    check(steps == 1 and finite, f"schwarz cli: {steps} steps, finite "
+          f"{finite}")
+    check(max(stats["cg_iters"]) < SCHWARZ_MAXITER,
+          "schwarz cli: a CG solve ran to maxiter")
+    check(launches == expected > 0, f"schwarz cli: K1 launched {launches} "
+          f"times, the run made {expected} applications")
+    return row, launches
+
+
+def phase_schwarz(torch, dev):
+    """(a) the flagship config stepped once under pc="jacobi" and under
+    pc="schwarz" (K1 launches == applications, the preconditioner's
+    included); (b) K1 with KinvT against its plain version; (c) run_case
+    -pc schwarz; (d) f64 GPU-vs-CPU parity of the 3^3 cavity under
+    Schwarz. Returns K1's launches on the Schwarz paths."""
+    t_phase = time.perf_counter()
+    j, p = _schwarz_step(torch, dev, "jacobi")
+    vort_j = p.vort.cpu().numpy()
+    del p
+    torch.cuda.empty_cache()
+    s, p = _schwarz_step(torch, dev, "schwarz")
+    kernel = _schwarz_kernel(torch, p)
+    vort_gap = _rel(p.vort.cpu().numpy(), vort_j)
+    del p
+    torch.cuda.empty_cache()
+    cli, cli_launches = _schwarz_cli(torch, dev)
+    cavity = cavity_config((3, 3, 3), 3, 1.0, 0.02, [1.0, 0, 0], 3, 1.0)
+    parity = _parity_case(
+        torch, dev, "cavity3d 3^3 ngl=3 pc=schwarz", cavity,
+        dict(solver="cg", cg_rtol=1e-13, cg_maxiter=4000, pc="schwarz"),
+        1e-8)
+    emit("schwarz", config="cavity3d 24^3 ngl=4 f32 cg_rtol=1e-6, 1 step "
+         "from rest, dt0 1e-3", jacobi=j, schwarz=s,
+         iter_ratio_fs=s["cg_iters_fs"] / j["cg_iters_fs"],
+         iter_ratio_main=s["cg_iters_main"] / j["cg_iters_main"],
+         s_per_step_ratio=s["s_per_step"] / j["s_per_step"],
+         vort_rel_diff=vort_gap, k1_kinv=kernel, cli=cli,
+         parity_rel_err=parity, phase_s=time.perf_counter() - t_phase)
+    return {"schwarz": s["fused_apply_launches"],
+            "schwarz_cli": cli_launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3641,6 +3868,7 @@ def main() -> int:
     k1_paths.update(phase_sharded(torch, dev, problem, t_main))
     k1_paths.update(phase_validation(torch, dev))
     k1_paths.update(phase_analyses(torch, dev))
+    k1_paths.update(phase_schwarz(torch, dev))
 
     record["launches"] = launches
     record["launches_by_path"] = k1_paths

@@ -20,8 +20,9 @@ layout at its start and back at its end.
 
 Analytic-function (`custom-func`) boundary and initial conditions take
 the `functions/` libraries; `exact_fields` evaluates the case's `tests`
-library. The preconditioner is the `pc` option ("jacobi" by default, or
-"fdm" for cold and one-shot solves).
+library. The preconditioner is the `pc` option ("jacobi" by default,
+"fdm" for cold and one-shot solves, or "schwarz", the reference's
+element-wise additive Schwarz kept for experimentation).
 
 `setup_viewer` and `run` write the HDF5/XDMF snapshots (or, with
 `fast_io`, the async binary ones) of a production run; fields leave the

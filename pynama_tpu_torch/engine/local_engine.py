@@ -11,7 +11,8 @@ Pipeline per RHS evaluation (reference evalRHS):
                 in, analytic-function sides evaluated and scattered on top)
     KLE solve : matrix-free PCG (or restarted GMRES, krylov="gmres") on
                 DSS(x @ K^T), preconditioned by the assembled diagonal
-                (Jacobi) or fast diagonalization (FDM)
+                (Jacobi), fast diagonalization (FDM) or element-wise
+                additive Schwarz mixed with Jacobi (pc="schwarz")
     operators : curl/SrT/DivSrT as DSS(x @ matT) + winv scaling
     v (x) v   : component extraction/packing via column gathers
 
@@ -51,7 +52,14 @@ kernel's raw axis-0 planes `bnd` go to the neighbour ranks and theirs are
 added into `y`'s first and last planes. With `overlap_dss` the plain box
 DSS is `ops/local.py::dss_overlapped`. `comm=None` is one device.
 
-The Schwarz preconditioner is an option the port leaves out.
+pc="schwarz" (`preconditioner`) is the reference's weighted additive
+overlapping Schwarz by element: z = DSS((free·r·inv_mult) @ KinvT)·inv_mult
+with KinvT the element pseudo-inverse (`element_pinv_T`, host numpy f64),
+plus half the Jacobi step. Its DSS(t @ KinvT) is `_apply_mat` with KinvT in
+place of K^T, so on a box mesh with `fused=True` it is one more K1 launch per
+application, and it serves sharded ranks as every other application does.
+It needs one element matrix shared by every element: with per-element K
+(unstructured meshes) pc falls back to "jacobi", the reference's rule.
 """
 from __future__ import annotations
 
@@ -137,8 +145,10 @@ class EngineOps:
     cg_maxiter: int
     #: analytic-function sides, scattered in order over the constant values
     func_sides: tuple = ()
-    #: preconditioner: "jacobi" (assembled diagonal) or "fdm" (fast
-    #: diagonalization; wins cold and one-shot solves)
+    #: preconditioner: "jacobi" (assembled diagonal), "fdm" (fast
+    #: diagonalization; wins cold and one-shot solves) or "schwarz"
+    #: (element-wise additive Schwarz + Jacobi; the reference measured 2.7x
+    #: Jacobi's iterations and keeps it for experimentation)
     pc: str = "jacobi"
     #: FDM data per masked system; None unless pc == "fdm"
     fdm_main: Optional[FDMOps] = None
@@ -156,6 +166,9 @@ class EngineOps:
     #: overlap the plain box DSS's plane exchange with its bulk passes
     #: (ops/local.py dss_overlapped); only read when sharded
     overlap_dss: bool = False
+    #: the element pseudo-inverse, transposed, (nncv, nncv); None unless
+    #: pc == "schwarz"
+    KinvT: Optional[torch.Tensor] = None
 
     @property
     def nn(self):
@@ -282,6 +295,20 @@ def _engine_arrays(mesh, bc, em_K, em_Rw, op_curl, op_srt, op_div,
     return out
 
 
+def element_pinv_T(em_K) -> np.ndarray:
+    """The transposed pseudo-inverse of one shared element K, float64 (the
+    reference's Schwarz setup). K_e is symmetric positive semi-definite with
+    a small null space (per-component constants survive the stiffness and
+    the penalties): invert the symmetrized matrix's eigenvalues above
+    1e-10·λmax and drop the directions below, which the Jacobi part of the
+    preconditioner covers."""
+    Ke = np.asarray(em_K, dtype=np.float64)
+    lam, Q = np.linalg.eigh(0.5 * (Ke + Ke.T))
+    cut = 1e-10 * lam.max()
+    inv_lam = np.where(lam > cut, 1.0 / np.maximum(lam, cut), 0.0)
+    return ((Q * inv_lam[None, :]) @ Q.T).T
+
+
 def _engine_func_sides(mesh, bc) -> list:
     """FuncSide per analytic-function side, numpy: the coordinates and row
     ids of every element slot of the side's nodes."""
@@ -308,12 +335,12 @@ def ops_from_numpy(arrays: dict, *, ngl, nelem, dim, dim_w, dim_s, is_ns,
                    structured=True, comm=None,
                    overlap_dss=False) -> EngineOps:
     """EngineOps from numpy arrays keyed by ARRAY_FIELDS, plus
-    UNSTRUCTURED_FIELDS when `structured` is False and SUMFACT_FIELDS when
-    K is sum-factorized (the fields of the JAX package's EngineOps carry
-    over one to one). Float arrays are cast to `dtype`, index arrays to
-    int64, scalars to Python floats. `func_sides` holds objects with the
-    FuncSide fields whose arrays numpy can read (either package's
-    FuncSide); `fdm_main`/`fdm_fs` are the port's FDMOps (or, on a rank's
+    UNSTRUCTURED_FIELDS when `structured` is False, SUMFACT_FIELDS when
+    K is sum-factorized and "KinvT" when pc is "schwarz" (the fields of
+    the JAX package's EngineOps carry over one to one). Float arrays are
+    cast to `dtype`, index arrays to int64, scalars to Python floats.
+    `func_sides` holds objects with the FuncSide fields whose arrays numpy
+    can read (either package's FuncSide); `fdm_main`/`fdm_fs` are the port's FDMOps (or, on a rank's
     slab, SlabFDM) on `device`. A sharded rank's arrays may hold
     "lay_{v,w,s}.iface" (the partition-interface rows); `comm` and
     `overlap_dss` go to the EngineOps as they are."""
@@ -345,6 +372,11 @@ def ops_from_numpy(arrays: dict, *, ngl, nelem, dim, dim_w, dim_s, is_ns,
             {k: arrays[f"sumfact.{k}"] for k in S.FIELDS}, device=device,
             dtype=dtype)
 
+    KinvT = f("KinvT") if "KinvT" in arrays else None
+    if pc == "schwarz" and KinvT is None:
+        raise ValueError("pc='schwarz' needs the element pseudo-inverse "
+                         "'KinvT' among the arrays")
+
     fsides = tuple(FuncSide(
         coords=torch.as_tensor(np.array(fs.coords), dtype=dtype,
                                device=device),
@@ -367,19 +399,21 @@ def ops_from_numpy(arrays: dict, *, ngl, nelem, dim, dim_w, dim_s, is_ns,
         cg_atol=float(cg_atol), cg_maxiter=int(cg_maxiter),
         func_sides=fsides, pc=pc, fdm_main=fdm_main, fdm_fs=fdm_fs,
         krylov=krylov, fused=bool(fused), sumfact=sumfact, comm=comm,
-        overlap_dss=bool(overlap_dss))
+        overlap_dss=bool(overlap_dss), KinvT=KinvT)
 
 
 def ops_to_numpy(ops: EngineOps) -> dict:
     """The inverse of `ops_from_numpy`'s array part: every array field of
     `ops` as a host numpy array in its own dtype, keyed as ops_from_numpy
     takes them (ARRAY_FIELDS, UNSTRUCTURED_FIELDS on an unstructured mesh,
-    SUMFACT_FIELDS with a sum-factorized K)."""
+    SUMFACT_FIELDS with a sum-factorized K, "KinvT" under pc="schwarz")."""
     keys = ARRAY_FIELDS
     if not ops.lay_v.structured:
         keys = keys + UNSTRUCTURED_FIELDS
     if ops.sumfact is not None:
         keys = keys + SUMFACT_FIELDS
+    if ops.KinvT is not None:
+        keys = keys + ("KinvT",)
     out = {}
     for key in keys:
         obj = ops
@@ -406,6 +440,9 @@ def build_engine(mesh, bc, em_K, em_Rw, op_curl, op_srt, op_div, op_weight,
     fast-diagonalization data of both masked systems (numpy setup, tensors
     on `device`); as in the reference, pc falls back to "jacobi" when
     `build_fdm` finds no tensor structure (every unstructured mesh).
+    pc="schwarz" builds the element pseudo-inverse on the host
+    (`element_pinv_T`) when em_K is one shared matrix; with per-element K
+    (unstructured meshes) pc falls back to "jacobi", as in the reference.
     krylov="gmres" solves the masked systems with restarted GMRES(30)
     instead of PCG. fused=False applies every operator through the plain
     ops/local.py route instead of fused_apply. sumfact (None: on for
@@ -415,12 +452,7 @@ def build_engine(mesh, bc, em_K, em_Rw, op_curl, op_srt, op_div, op_weight,
     """
     if krylov not in ("cg", "gmres"):
         raise ValueError(f"unknown Krylov method '{krylov}'")
-    if pc == "schwarz":
-        raise NotImplementedError(
-            "pc='schwarz' is an option the port leaves out: it measured "
-            "2.7x more CG iterations than Jacobi in the JAX package "
-            "(ROADMAP Queue A, options left out)")
-    if pc not in ("jacobi", "fdm"):
+    if pc not in ("jacobi", "fdm", "schwarz"):
         raise ValueError(f"unknown preconditioner '{pc}'")
     box = getattr(mesh, "is_box", False)
     arrays = _engine_arrays(mesh, bc, em_K, em_Rw, op_curl, op_srt, op_div,
@@ -446,6 +478,14 @@ def build_engine(mesh, bc, em_K, em_Rw, op_curl, op_srt, op_div, op_weight,
                            "structure to diagonalize; using pc='jacobi' "
                            "(the reference's rule)")
             pc, fdm_fs = "jacobi", None
+    if pc == "schwarz":
+        if np.ndim(em_K) == 2:
+            arrays["KinvT"] = element_pinv_T(em_K)
+        else:
+            logger.warning("pc='schwarz': the elements have matrices of "
+                           "their own, no shared one to invert; using "
+                           "pc='jacobi' (the reference's rule)")
+            pc = "jacobi"
     return ops_from_numpy(
         arrays, ngl=mesh.ngl,
         nelem=mesh.nelem if box else (mesh.n_cells,), dim=mesh.dim,
@@ -605,13 +645,55 @@ def vtensv(ops: EngineOps, vel):
 # solves
 # ---------------------------------------------------------------------------
 
+def preconditioner(ops: EngineOps, free, fdm=None):
+    """M_inv of the masked system with free-dof mask `free`: FDM when
+    ops.pc == "fdm" and `fdm` (that system's FDMOps, or a rank's SlabFDM)
+    is given, Schwarz when ops.pc == "schwarz", else Jacobi.
+
+    CONTRACT: z = M_inv(r) keeps exact zeros on the constrained dofs
+    (z_con == 0 whenever r_con == 0). _masked_solve's A0/A split rests on
+    it: the in-loop operator drops the input mask and the `con*v`
+    passthrough because every loop vector stays exactly zero there. FDM
+    and Schwarz mask with `free` and re-add `con*r`; the Jacobi divide maps
+    zeros to zeros."""
+    con = 1.0 - free
+    if ops.pc == "fdm" and isinstance(fdm, SlabFDM):
+        def M_inv(r):
+            z = fdm_apply_slab(fdm, free * r, ops.nelem, ops.ngl, ops.comm)
+            return free * z + con * r
+        return M_inv
+    if ops.pc == "fdm" and fdm is not None:
+        def M_inv(r):
+            z = fdm_apply(fdm, free * r, nelem=ops.nelem, ngl=ops.ngl)
+            return free * z + con * r
+        return M_inv
+    dmask = free * ops.diag + con
+    if ops.pc == "schwarz":
+        # weighted additive overlapping Schwarz by element
+        # (M^-1 = sum_e R^T D K_e^+ D R, SPSD) mixed with Jacobi to cover
+        # the element null space; both restricted to the free subspace
+        inv_mult = ops.lay_v.inv_mult
+
+        def M_inv(r):
+            rf = free * r
+            z = _apply_mat(ops, ops.lay_v, rf * inv_mult, ops.KinvT) \
+                * inv_mult
+            return free * z + 0.5 * rf / dmask + con * r
+        return M_inv
+
+    def M_inv(r):
+        return r / dmask
+    return M_inv
+
+
 def _masked_solve(ops: EngineOps, free, vort, vel, stats=None, fdm=None):
     """Solve the Dirichlet-condensed KLE system on the free subspace with
-    preconditioned CG, or GMRES when ops.krylov == "gmres" (FDM when
-    ops.pc == "fdm" and `fdm` is given, else Jacobi). `stats`, when a
-    list, gets the solve's (iters, loop_applies) for CG (see solver/cg.py
-    CGResult: the A0 residual is not counted) or (iters, applies) for GMRES
-    (see solver/gmres.py GMRESResult: every application counted)."""
+    preconditioned CG, or GMRES when ops.krylov == "gmres" (the
+    preconditioner of `preconditioner`). `stats`, when a list, gets the
+    solve's (iters, loop_applies) for CG (see solver/cg.py CGResult: the A0
+    residual is not counted) or (iters, applies) for GMRES (see
+    solver/gmres.py GMRESResult: every application counted). Either solver
+    applies the preconditioner once more than the count."""
     con = 1.0 - free
     vc = con * vel
     b = free * (_apply_mat(ops, ops.lay_v, vort, ops.RwT)
@@ -624,31 +706,12 @@ def _masked_solve(ops: EngineOps, free, vort, vel, stats=None, fdm=None):
     def A(v):
         """In-loop operator: every CG loop vector is exactly zero on the
         constrained dofs (r0_con = b_con - A0(x0)_con = vc - vc = 0, and
-        Ap/z/p inherit the zeros), so `free*v == v` bitwise and `con*v`
-        vanishes; dropping them saves two full passes per iteration with
-        a bitwise-identical trajectory."""
+        Ap/z/p inherit the zeros; see `preconditioner`'s contract), so
+        `free*v == v` bitwise and `con*v` vanishes; dropping them saves two
+        full passes per iteration with a bitwise-identical trajectory."""
         return free * apply_K(ops, v)
 
-    # CONTRACT for every M_inv below: z = M_inv(r) keeps exact zeros on
-    # the constrained dofs (z_con == 0 whenever r_con == 0). The A0/A split
-    # above rests on it: the in-loop operator drops the input mask and the
-    # `con*v` passthrough because every loop vector stays exactly zero
-    # there. FDM masks with `free` and re-adds `con*r`; the Jacobi divide
-    # maps zeros to zeros.
-    if ops.pc == "fdm" and isinstance(fdm, SlabFDM):
-        def M_inv(r):
-            z = fdm_apply_slab(fdm, free * r, ops.nelem, ops.ngl, ops.comm)
-            return free * z + con * r
-    elif ops.pc == "fdm" and fdm is not None:
-        def M_inv(r):
-            z = fdm_apply(fdm, free * r, nelem=ops.nelem, ngl=ops.ngl)
-            return free * z + con * r
-    else:
-        dmask = free * ops.diag + con
-
-        def M_inv(r):
-            return r / dmask
-
+    M_inv = preconditioner(ops, free, fdm)
     if ops.krylov == "gmres":
         res = gmres(A0, b, free * vel + vc, M_inv=M_inv,
                     rtol=ops.cg_rtol, atol=ops.cg_atol,

@@ -23,6 +23,10 @@ One rank's EngineOps is the global one with (`split_ops`):
     only `shard_map` needed),
   * the slab FDM (`solver/fdm.py::shard_fdm`) under pc="fdm" on a box mesh,
     and pc="jacobi" on an unstructured one,
+  * under pc="schwarz" the element pseudo-inverse KinvT as it is (a shared
+    matrix: the rank's Schwarz applications are operator applications,
+    exchanged as the others are; the JAX package broadcasts it and its
+    `_dss` exchanges under `shard_map`),
   * the sum-factorized K's per-element geometry cut to the rank's rows.
 The JAX package's re-probe of the fused kernel's blocks has no counterpart:
 the port's K1 takes every shape.

@@ -219,9 +219,10 @@ def test_fdm_taylor_green_transient():
 def test_pc_fallback_and_left_out_options(caplog):
     """No tensor structure to diagonalize (nothing free along an axis):
     pc falls back to "jacobi", as in the reference, and says so. The
-    Schwarz preconditioner raises, naming why. krylov="gmres" builds, and
-    its FDM-preconditioned solve takes the JAX package's iterations to the
-    same velocity."""
+    Schwarz preconditioner builds as the reference's does, on the same
+    mesh, with its element pseudo-inverse; an unknown name raises.
+    krylov="gmres" builds, and its FDM-preconditioned solve takes the JAX
+    package's iterations to the same velocity."""
     cfg = cavity(1, 2, 2)
     with caplog.at_level(logging.WARNING, "pynama_tpu_torch.engine"):
         p = TProblem(cfg, device="cpu", dtype=F64, solver="cg", pc="fdm")
@@ -231,8 +232,17 @@ def test_pc_fallback_and_left_out_options(caplog):
     assert p.engine_ops.pc == pj.engine_ops.pc == "jacobi"
     assert p.engine_ops.fdm_main is None and p.engine_ops.fdm_fs is None
     assert "pc='jacobi'" in caplog.text
-    with pytest.raises(NotImplementedError, match="2.7x"):
-        TProblem(cfg, device="cpu", solver="cg", pc="schwarz").setUp()
+    ps = TProblem(cfg, device="cpu", dtype=F64, solver="cg", pc="schwarz")
+    ps.setUp()
+    pjs = JProblem(cfg, solver="cg", pc="schwarz")
+    pjs.setUp()
+    assert ps.engine_ops.pc == pjs.engine_ops.pc == "schwarz"
+    np.testing.assert_allclose(ps.engine_ops.KinvT.numpy(),
+                               np.asarray(pjs.engine_ops.KinvT), rtol=1e-12,
+                               atol=1e-12 * float(np.abs(np.asarray(
+                                   pjs.engine_ops.KinvT)).max()))
+    with pytest.raises(ValueError, match="preconditioner"):
+        TProblem(cfg, device="cpu", solver="cg", pc="ilu").setUp()
     pt = TProblem(cavity(2, 3, 2), device="cpu", dtype=F64, solver="cg")
     pt.setUp()
     ops = TE.build_engine(pt.mesh, pt.bc, pt._em.K, pt._em.Rw, pt._eo.Curl,
