@@ -70,6 +70,7 @@ from pynama_tpu_torch.ops.apply import (ElementOp, apply_op, fanin_sum_np,
                                         make_element_op)
 from pynama_tpu_torch.solver.kle import KLESolver, build_system
 from pynama_tpu_torch.solver.timestep import adaptive_solve
+from pynama_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger("pynama_tpu_torch.problem")
 
@@ -155,11 +156,16 @@ class Problem:
 
     # ------------------------------------------------------------------ setup
     def setUp(self):
+        """Build the case. `setup_phases` gets each phase's seconds, the
+        device synchronized at each phase's end on a card, so a phase's
+        queued device work counts in it."""
         phases = {}
         t0 = _time.perf_counter()
 
         def _mark(name):
             nonlocal t0
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
             t1 = _time.perf_counter()
             phases[name] = t1 - t0
             t0 = t1
@@ -375,7 +381,8 @@ class Problem:
     # ------------------------------------------------------------------- RHS
     def solve_kle(self, vort, vel, t=None):
         """Apply BCs and run the (possibly two-stage) KLE solve (evalRHS
-        pre-solve chain); global fields in and out, on the device."""
+        pre-solve chain); global fields in and out, on the device. Each BC
+        write is an `rhs.bc` span."""
         t = self.start_time if t is None else t
         if self.engine_ops is not None:
             vort_l, vel_l = solve_kle_local(
@@ -383,25 +390,30 @@ class Problem:
                 t, self.cg_log)
             return (self._to_global_dev(vort_l, self.dim_w),
                     self._to_global_dev(vel_l, self.dim))
-        vort = self.bc.apply_vorticity(self._field(vort), t, self.nu)
-        vel = self.bc.apply_velocity(self._field(vel), t, self.nu)
+        with span("rhs.bc"):
+            vort = self.bc.apply_vorticity(self._field(vort), t, self.nu)
+        with span("rhs.bc"):
+            vel = self.bc.apply_velocity(self._field(vel), t, self.nu)
         if self.kle.is_ns:
             vel_fs = self.kle.solve_fs(vort, vel, self.cg_log)
-            vel_fs = self.bc.apply_tangential(vel_fs, t, self.nu)
+            with span("rhs.bc"):
+                vel_fs = self.bc.apply_tangential(vel_fs, t, self.nu)
             vort = self.operator.curl(vel_fs)
         vel = self.kle.solve(vort, vel, self.cg_log)
         return vort, vel
 
     def rhs(self, t, vort, vel_prev):
         """d(vort)/dt in the global layout (reference evalRHS), evaluated
-        at the stage vector `vort`. Returns (f, vel)."""
-        _, vel = self.solve_kle(vort, vel_prev, t)
-        vtensv = compute_vtensv(vel, self.dim)
-        op = self.operator
-        aux1 = 2.0 * self.mu * apply_op(op.srt_op, vel) * op.winv \
-            - self.rho * vtensv
-        rhs_v = op.div_srt(aux1) / self.rho
-        f = op.curl(rhs_v)
+        at the stage vector `vort`, an `rhs.eval` span. Returns (f,
+        vel)."""
+        with span("rhs.eval"):
+            _, vel = self.solve_kle(vort, vel_prev, t)
+            vtensv = compute_vtensv(vel, self.dim)
+            op = self.operator
+            aux1 = 2.0 * self.mu * apply_op(op.srt_op, vel) * op.winv \
+                - self.rho * vtensv
+            rhs_v = op.div_srt(aux1) / self.rho
+            f = op.curl(rhs_v)
         return f, vel
 
     # ----------------------------------------------------------- time solving

@@ -78,6 +78,7 @@ from pynama_tpu_torch.solver.cg import pcg
 from pynama_tpu_torch.solver.fdm import (FDMOps, SlabFDM, build_fdm,
                                          fdm_apply, fdm_apply_slab)
 from pynama_tpu_torch.solver.gmres import gmres
+from pynama_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger("pynama_tpu_torch.engine")
 
@@ -686,43 +687,51 @@ def preconditioner(ops: EngineOps, free, fdm=None):
     return M_inv
 
 
-def _masked_solve(ops: EngineOps, free, vort, vel, stats=None, fdm=None):
+def _masked_solve(ops: EngineOps, free, vort, vel, stats=None, fdm=None,
+                  stage="main"):
     """Solve the Dirichlet-condensed KLE system on the free subspace with
     preconditioned CG, or GMRES when ops.krylov == "gmres" (the
     preconditioner of `preconditioner`). `stats`, when a list, gets the
     solve's (iters, loop_applies) for CG (see solver/cg.py CGResult: the A0
     residual is not counted) or (iters, applies) for GMRES (see
     solver/gmres.py GMRESResult: every application counted). Either solver
-    applies the preconditioner once more than the count."""
-    con = 1.0 - free
-    vc = con * vel
-    b = free * (_apply_mat(ops, ops.lay_v, vort, ops.RwT)
-                - apply_K(ops, vc)) + vc
+    applies the preconditioner once more than the count. The solve is a
+    `kle.solve` span with attrs method, stage ("fs" or "main"),
+    loop_applies (the count above, a host int) and iters (a device
+    tensor)."""
+    with span("kle.solve") as sp:
+        sp.attrs["method"], sp.attrs["stage"] = ops.krylov, stage
+        con = 1.0 - free
+        vc = con * vel
+        b = free * (_apply_mat(ops, ops.lay_v, vort, ops.RwT)
+                    - apply_K(ops, vc)) + vc
 
-    def A0(v):
-        """Full Dirichlet-condensed operator — initial residual only."""
-        return free * apply_K(ops, free * v) + con * v
+        def A0(v):
+            """Full Dirichlet-condensed operator — initial residual only."""
+            return free * apply_K(ops, free * v) + con * v
 
-    def A(v):
-        """In-loop operator: every CG loop vector is exactly zero on the
-        constrained dofs (r0_con = b_con - A0(x0)_con = vc - vc = 0, and
-        Ap/z/p inherit the zeros; see `preconditioner`'s contract), so
-        `free*v == v` bitwise and `con*v` vanishes; dropping them saves two
-        full passes per iteration with a bitwise-identical trajectory."""
-        return free * apply_K(ops, v)
+        def A(v):
+            """In-loop operator: every CG loop vector is exactly zero on the
+            constrained dofs (r0_con = b_con - A0(x0)_con = vc - vc = 0, and
+            Ap/z/p inherit the zeros; see `preconditioner`'s contract), so
+            `free*v == v` bitwise and `con*v` vanishes; dropping them saves
+            two full passes per iteration with a bitwise-identical
+            trajectory."""
+            return free * apply_K(ops, v)
 
-    M_inv = preconditioner(ops, free, fdm)
-    if ops.krylov == "gmres":
-        res = gmres(A0, b, free * vel + vc, M_inv=M_inv,
-                    rtol=ops.cg_rtol, atol=ops.cg_atol,
-                    maxiter=ops.cg_maxiter, dot=_dot_v(ops))
-        counted = res.applies
-    else:
-        res = pcg(A, b, free * vel + vc, M_inv=M_inv,
-                  rtol=ops.cg_rtol, atol=ops.cg_atol,
-                  maxiter=ops.cg_maxiter, dot=_dot_v(ops), A0=A0,
-                  dots=_dots_v(ops))
-        counted = res.loop_applies
+        M_inv = preconditioner(ops, free, fdm)
+        if ops.krylov == "gmres":
+            res = gmres(A0, b, free * vel + vc, M_inv=M_inv,
+                        rtol=ops.cg_rtol, atol=ops.cg_atol,
+                        maxiter=ops.cg_maxiter, dot=_dot_v(ops))
+            counted = res.applies
+        else:
+            res = pcg(A, b, free * vel + vc, M_inv=M_inv,
+                      rtol=ops.cg_rtol, atol=ops.cg_atol,
+                      maxiter=ops.cg_maxiter, dot=_dot_v(ops), A0=A0,
+                      dots=_dots_v(ops))
+            counted = res.loop_applies
+        sp.attrs["loop_applies"], sp.attrs["iters"] = counted, res.iters
     if stats is not None:
         stats.append((res.iters, counted))
     return res.x
@@ -731,13 +740,17 @@ def _masked_solve(ops: EngineOps, free, vort, vel, stats=None, fdm=None):
 def solve_kle_local(ops: EngineOps, vort, vel, time, stats=None):
     """BC application + (two-stage) KLE solve, local layout (evalRHS
     pre-solve chain). `stats`, when a list, gets one pair per solve (see
-    _masked_solve; free-slip stage first on no-slip problems)."""
-    vort = apply_vorticity_bc(ops, vort, time)
-    vel = apply_velocity_bc(ops, vel, time)
+    _masked_solve; free-slip stage first on no-slip problems). Each BC
+    write is an `rhs.bc` span."""
+    with span("rhs.bc"):
+        vort = apply_vorticity_bc(ops, vort, time)
+    with span("rhs.bc"):
+        vel = apply_velocity_bc(ops, vel, time)
     if ops.is_ns:
         vel_fs = _masked_solve(ops, ops.free_fs, vort, vel, stats,
-                               fdm=ops.fdm_fs)
-        vel_fs = apply_tangential_bc(ops, vel_fs, time)
+                               fdm=ops.fdm_fs, stage="fs")
+        with span("rhs.bc"):
+            vel_fs = apply_tangential_bc(ops, vel_fs, time)
         vort = curl(ops, vel_fs)
     vel = _masked_solve(ops, ops.free_main, vort, vel, stats,
                         fdm=ops.fdm_main)
@@ -745,12 +758,13 @@ def solve_kle_local(ops: EngineOps, vort, vel, time, stats=None):
 
 
 def rhs_local(ops: EngineOps, time, vort, vel, stats=None):
-    """d(vort)/dt in local layout (evalRHS)."""
-    _, vel = solve_kle_local(ops, vort, vel, time, stats)
-    vtv = vtensv(ops, vel)
-    aux1 = 2.0 * ops.mu * srt(ops, vel) - ops.rho * vtv
-    rhs_v = div_srt(ops, aux1) / ops.rho
-    f = curl(ops, rhs_v)
+    """d(vort)/dt in local layout (evalRHS), an `rhs.eval` span."""
+    with span("rhs.eval"):
+        _, vel = solve_kle_local(ops, vort, vel, time, stats)
+        vtv = vtensv(ops, vel)
+        aux1 = 2.0 * ops.mu * srt(ops, vel) - ops.rho * vtv
+        rhs_v = div_srt(ops, aux1) / ops.rho
+        f = curl(ops, rhs_v)
     return f, vel
 
 

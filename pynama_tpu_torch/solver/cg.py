@@ -11,6 +11,13 @@ count are those of the reference; the cost is up to `check_every - 1`
 operator applications after convergence, against one host sync per
 iteration saved.
 
+Spans (utils/profiling.py; no-ops unless a trace is on): every operator
+application is a `pcg.apply`, every preconditioner application a
+`pcg.precond`, the host read of `run` a `pcg.check`, and the rest of the
+loop's launches (dots, scalar and vector updates) `pcg.update`. The
+condition `run` of the next iteration is formed at the end of the body,
+inside the same `pcg.update` as the updates it reads.
+
 Stopping rule, exactly the reference's: iterate while rr > tol2 and
 k < maxiter and gamma > 0 and bnorm2 > 0, with tol2 = max(rtol·||b||,
 atol)^2, and alpha = 0 where pAp <= 0.
@@ -20,6 +27,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+
+from pynama_tpu_torch.utils.profiling import span
 
 
 class CGResult(NamedTuple):
@@ -61,35 +70,50 @@ def pcg(A: Callable, b: torch.Tensor, x0: torch.Tensor,
     if dots is None:
         dots = lambda pairs: [dot(a, c) for a, c in pairs]
 
-    r = b - (A0 if A0 is not None else A)(x0)
-    z = M_inv(r)
-    gamma, rr, bnorm2 = dots([(r, z), (r, r), (b, b)])
-    tol2 = torch.clamp(rtol * torch.sqrt(bnorm2), min=atol) ** 2
-    x, p = x0, z
-    k = torch.zeros((), dtype=torch.int64, device=b.device)
-    zero = torch.zeros((), dtype=b.dtype, device=b.device)
-    one = torch.ones((), dtype=b.dtype, device=b.device)
-    live = bnorm2 > 0            # loop-invariant part of the condition
+    with span("pcg.apply"):
+        r = (A0 if A0 is not None else A)(x0)
+    with span("pcg.update"):
+        r = b - r                # frees A x0: no vector outlives its use
+    with span("pcg.precond"):
+        z = M_inv(r)
+    with span("pcg.update"):
+        gamma, rr, bnorm2 = dots([(r, z), (r, r), (b, b)])
+        tol2 = torch.clamp(rtol * torch.sqrt(bnorm2), min=atol) ** 2
+        x, p = x0, z
+        k = torch.zeros((), dtype=torch.int64, device=b.device)
+        zero = torch.zeros((), dtype=b.dtype, device=b.device)
+        one = torch.ones((), dtype=b.dtype, device=b.device)
+        live = bnorm2 > 0            # loop-invariant part of the condition
+        run = (rr > tol2) & (k < maxiter) & (gamma > 0) & live
 
     n = 0
     while n < maxiter:
-        run = (rr > tol2) & (k < maxiter) & (gamma > 0) & live
-        if n % check_every == 0 and not bool(run):
-            break
-        Ap = A(p)
-        pAp = dot(p, Ap)
-        ok = run & (pAp > 0)
-        alpha = torch.where(ok, gamma / torch.where(ok, pAp, one), zero)
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = M_inv(r)
-        gamma_new, rr_new = dots([(r, z), (r, r)])
-        beta = torch.where(run, gamma_new / torch.where(run, gamma, one),
-                           zero)
-        p = z + beta * p
-        gamma = torch.where(run, gamma_new, gamma)
-        rr = torch.where(run, rr_new, rr)
-        k = k + run.to(k.dtype)
+        if n % check_every == 0:
+            with span("pcg.check"):
+                stop = not bool(run)
+            if stop:
+                break
+        with span("pcg.apply"):
+            Ap = A(p)
+        with span("pcg.update"):
+            pAp = dot(p, Ap)
+            ok = run & (pAp > 0)
+            alpha = torch.where(ok, gamma / torch.where(ok, pAp, one), zero)
+            x = x + alpha * p
+            r = r - alpha * Ap
+        with span("pcg.precond"):
+            z = M_inv(r)
+        with span("pcg.update"):
+            gamma_new, rr_new = dots([(r, z), (r, r)])
+            beta = torch.where(run, gamma_new / torch.where(run, gamma, one),
+                               zero)
+            p = z + beta * p
+            gamma = torch.where(run, gamma_new, gamma)
+            rr = torch.where(run, rr_new, rr)
+            k = k + run.to(k.dtype)
+            run = (rr > tol2) & (k < maxiter) & (gamma > 0) & live
         n += 1
-    x = torch.where(live, x, torch.zeros_like(x))
-    return CGResult(x=x, iters=k, residual=torch.sqrt(rr), loop_applies=n)
+    with span("pcg.update"):
+        x = torch.where(live, x, torch.zeros_like(x))
+        residual = torch.sqrt(rr)
+    return CGResult(x=x, iters=k, residual=residual, loop_applies=n)

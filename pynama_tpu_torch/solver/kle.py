@@ -39,6 +39,7 @@ from pynama_tpu_torch.ops.apply import (ElementOp, apply_op,
                                         assemble_dense)
 from pynama_tpu_torch.solver.cg import pcg
 from pynama_tpu_torch.solver.gmres import gmres
+from pynama_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,54 +80,62 @@ class KLESolver:
     def solve_fs(self, vort, vel, stats=None):
         """Free-slip stage solve for NS problems."""
         return _masked_solve(self.K_op, self.Rw_op, self.fs, vort, vel,
-                             stats)
+                             stats, stage="fs")
 
 
 def _masked_solve(K_op: ElementOp, Rw_op: ElementOp, sys: KLESystem,
-                  vort, vel, stats=None):
+                  vort, vel, stats=None, stage="main"):
     """Solve one masked system. `stats`, when a list, gets one pair per
     iterative solve: (iters, loop_applies) for cg (the A0 residual not
     counted, as in CGResult), (iters, applies) for gmres (every
-    application counted, as in GMRESResult)."""
-    free = sys.free
-    con = 1.0 - free
-    vc = con * vel
-    b = free * (apply_op(Rw_op, vort) - apply_op(K_op, vc)) + vc
+    application counted, as in GMRESResult). The solve is a `kle.solve`
+    span with attrs method and stage ("fs" or "main"), and for an
+    iterative solve loop_applies (the count above, a host int) and iters
+    (a device tensor)."""
+    with span("kle.solve") as sp:
+        sp.attrs["method"], sp.attrs["stage"] = sys.method, stage
+        free = sys.free
+        con = 1.0 - free
+        vc = con * vel
+        b = free * (apply_op(Rw_op, vort) - apply_op(K_op, vc)) + vc
 
-    if sys.method == "direct":
-        # two triangular solves, not torch.cholesky_solve: that copies the
-        # whole factor on every call (1.66 GB at 20,402 dofs in f32, +40%
-        # time; tools/direct_factor_routes.py), same result bit for bit
-        y = torch.linalg.solve_triangular(sys.chol, b.reshape(-1, 1),
-                                          upper=False)
-        x = torch.linalg.solve_triangular(sys.chol.mT, y, upper=True)
-        return x.reshape(vel.shape)
+        if sys.method == "direct":
+            # two triangular solves, not torch.cholesky_solve: that copies
+            # the whole factor on every call (1.66 GB at 20,402 dofs in f32,
+            # +40% time; tools/direct_factor_routes.py), same result bit for
+            # bit
+            y = torch.linalg.solve_triangular(sys.chol, b.reshape(-1, 1),
+                                              upper=False)
+            x = torch.linalg.solve_triangular(sys.chol.mT, y, upper=True)
+            return x.reshape(vel.shape)
 
-    def A0(v):
-        """Full condensed operator — initial residual only (and GMRES)."""
-        return free * apply_op(K_op, free * v) + con * v
+        def A0(v):
+            """Full condensed operator — initial residual only (and
+            GMRES)."""
+            return free * apply_op(K_op, free * v) + con * v
 
-    def A(v):
-        """In-loop operator: CG loop vectors are exactly zero on the
-        constrained dofs (the invariant of local_engine._masked_solve), so
-        the input mask and `con*v` passthrough are dropped, with a
-        bitwise-identical trajectory."""
-        return free * apply_op(K_op, v)
+        def A(v):
+            """In-loop operator: CG loop vectors are exactly zero on the
+            constrained dofs (the invariant of local_engine._masked_solve),
+            so the input mask and `con*v` passthrough are dropped, with a
+            bitwise-identical trajectory."""
+            return free * apply_op(K_op, v)
 
-    dmask = free * sys.diag + con
+        dmask = free * sys.diag + con
 
-    def M_inv(r):
-        return r / dmask
+        def M_inv(r):
+            return r / dmask
 
-    x0 = free * vel + vc
-    if sys.method == "gmres":
-        res = gmres(A0, b, x0, M_inv=M_inv, rtol=sys.cg_rtol,
-                    atol=sys.cg_atol, maxiter=sys.cg_maxiter)
-        counted = res.applies
-    else:
-        res = pcg(A, b, x0, M_inv=M_inv, rtol=sys.cg_rtol, atol=sys.cg_atol,
-                  maxiter=sys.cg_maxiter, A0=A0)
-        counted = res.loop_applies
+        x0 = free * vel + vc
+        if sys.method == "gmres":
+            res = gmres(A0, b, x0, M_inv=M_inv, rtol=sys.cg_rtol,
+                        atol=sys.cg_atol, maxiter=sys.cg_maxiter)
+            counted = res.applies
+        else:
+            res = pcg(A, b, x0, M_inv=M_inv, rtol=sys.cg_rtol,
+                      atol=sys.cg_atol, maxiter=sys.cg_maxiter, A0=A0)
+            counted = res.loop_applies
+        sp.attrs["loop_applies"], sp.attrs["iters"] = counted, res.iters
     if stats is not None:
         stats.append((res.iters, counted))
     return res.x

@@ -1,4 +1,4 @@
-"""The port's utils/ (Timer, PhaseTimer, device_trace, ops_info) and the
+"""The port's utils/ (Timer, device_trace, ops_info) and the
 operator report Problem.setUp logs at debug level, against the JAX
 package's where both compute the same thing."""
 import json
@@ -12,8 +12,8 @@ from pynama_tpu.cases import Problem as JProblem
 from pynama_tpu.utils.report import ops_info as jops_info
 from pynama_tpu_torch.cases import Problem as TProblem
 from pynama_tpu_torch.utils import Timer
-from pynama_tpu_torch.utils.profiling import (TRACE_FILE, PhaseTimer,
-                                              device_trace)
+from pynama_tpu_torch.utils import profiling
+from pynama_tpu_torch.utils.profiling import TRACE_FILE, device_trace
 from pynama_tpu_torch.utils.report import (format_ops_info, ops_info,
                                            pytree_nbytes)
 
@@ -32,27 +32,29 @@ def test_timer():
     assert e >= 0.01 and t.getTime() == e and str(t) == f"{e:.6f}s"
 
 
-def test_phase_timer():
-    pt = PhaseTimer()
-    for _ in range(2):
-        with pt.phase("a"):
-            time.sleep(0.002)
-    with pt.phase("b"):
-        pass
-    assert pt.counts == {"a": 2, "b": 1}
-    assert pt.totals["a"] >= 0.004
-    assert pt.report().splitlines()[0].startswith("a ")
-
-
 def test_device_trace_writes_chrome_trace(tmp_path):
+    """The trace holds the block's ops and, as user annotations on the
+    profiler's clock, the program's spans of a tiny rhs run inside it; the
+    program's trace is on for the block only."""
+    from pynama_tpu_torch.engine.local_engine import rhs_local
+    p = TProblem(cavity_config(ngl=3, nelem=2, dim=2), device="cpu",
+                 dtype=torch.float64, solver="cg")
+    p.setUp()
+    w = p.to_local(torch.rand((p.mesh.n_nodes, 1), dtype=torch.float64))
+    v = p.to_local(p.vel)
     d = tmp_path / "trace"
     with device_trace(str(d)):
         x = torch.ones(64, 64)
         (x @ x).sum()
+        rhs_local(p.engine_ops, 0.0, w, v)
+        assert profiling._ACTIVE is not None
+    assert profiling._ACTIVE is None
     path = d / TRACE_FILE
     assert path.exists()
     events = json.loads(path.read_text())["traceEvents"]
     assert any("aten::mm" in e.get("name", "") for e in events)
+    spans = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"rhs.eval", "kle.solve", "pcg.apply"} <= spans
 
 
 @pytest.mark.parametrize("solver", ["cg", "direct"])
