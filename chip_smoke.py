@@ -68,7 +68,11 @@ exits non-zero without the final result line:
             ngl=4, float32, CG rtol 1e-6): Problem.setUp() and 2 accepted
             adaptive steps through start_solver(); prints setup phases,
             seconds per step, CG iterations per solve, kernel launches (which
-            must account for every operator application) and peak memory
+            must account for every operator application) and peak memory;
+            the CG epilogue's launches (ops/cg_epilogue.py), counted from 0
+            around the run: cg_pap, cg_xr and cg_p once per CG-loop
+            application each, cg_rz never (Jacobi: the divide is in the
+            kernels)
 6. rhs_trace one warm rhs_local of the flagship after phase 5's steps,
             timed untraced (median of 3) and traced once with
             torch.profiler: the device-busy, K1 and other-kernel (CG
@@ -89,7 +93,10 @@ exits non-zero without the final result line:
             field at the end time, which must be <= TG3D_ERR_LIMIT
 9. fdm      the flagship's config built with pc="jacobi" and pc="fdm", one
             cold two-stage solve each from the curl of a numpy-seeded random
-            velocity, K1's launches in it against the expected count: in
+            velocity, K1's launches in it against the expected count, and
+            the CG epilogue's: cg_pap, cg_xr and cg_p once per CG-loop
+            application, cg_rz as often under pc="fdm" and never under
+            pc="jacobi"; in
             f64 (CG rtol 1e-10) the velocities agree to 1e-6 and FDM takes
             fewer iterations on both stages; in f32 (rtol 1e-6) a record:
             iterations, CUDA-event ms per solve (median of 3), and per call
@@ -251,7 +258,9 @@ exits non-zero without the final result line:
             FS and main CG iterations and their Schwarz/Jacobi ratios, K1
             launches == the step's applications (under Schwarz one more K1
             call per CG-loop application and one per solve: the
-            preconditioner's DSS(t @ KinvT)), no solve at the cap; (b) K1
+            preconditioner's DSS(t @ KinvT)), the CG epilogue's launches
+            as in phase 9 (cg_rz once per application under Schwarz), no
+            solve at the cap; (b) K1
             with KinvT in place of K^T at that shape, on the input the
             preconditioner gives it, against its plain version (f32 with
             the engine's KinvT, f64 with the host's, F32_LIMIT /
@@ -260,6 +269,17 @@ exits non-zero without the final result line:
             -pc schwarz on cavity.yaml at its own size cut to 1 step, K1
             launches == expected; (d) the 3^3 ngl=3 cavity under Schwarz,
             f64, GPU against CPU within PARITY_LIMIT (as phase 4)
+20. cg_epilogue
+            the CG epilogue's kernels (csrc/cg_epilogue.cu) at the
+            flagship's local velocity length (2,654,208 values), f32 and
+            f64: one iteration's steps, Jacobi (cg_pap, cg_xr, cg_p) and
+            with an eager preconditioner (cg_pap, cg_xr, cg_rz, cg_p),
+            against their plain versions on copies (relative error <= 1e-5
+            f32, 1e-12 f64; the int64 scalars bitwise), their launch
+            counters; each kernel's device µs beside its HBM bound, the
+            timed calls rotating among EPILOGUE_RING states so that they
+            read HBM and not the 50 MB L2; and the device µs of the eager
+            loop's update of one Jacobi iteration, rotated the same way
 
 The last three lines are the card's name and power limit (nvidia-smi), the
 record of the four kernels as JSON (K1's also with `launches_by_path`: its
@@ -274,7 +294,11 @@ phase's `validation_cavity` and `validation_ibm_cd`, the analyses
 phase's `analyses_fused_ab` and `analyses_ngl7`, the schwarz phase's
 `schwarz` (the Schwarz step of (a)) and `schwarz_cli`;
 and `dss_pass_launches_by_path`: its DSS pass
-launched alone in (d)) and the result line {"ok": true, "device": {...}}.
+launched alone in (d)), then the CG epilogue's four kernels (`launches` in
+the main path's run, `launches_by_path` in phase 9's and 19's solves too,
+the largest relative error against the plain version, and phase 20's
+device µs and HBM bound µs by dtype and preconditioner form), and the
+result line {"ok": true, "device": {...}}.
 A kernel's `bound_ms` is the larger of the
 operations of its function over the card's peak rate for their type and its
 bytes (each input read once, each output written once) over the memory rate,
@@ -674,6 +698,13 @@ GEMM3X_M = [129, 1000]
 # every (tile columns, resident, bytes per copy of t) of K2's GEMM
 GEMM3X_PATHS = {(32, 1, 4), (192, 1, 16), (192, 1, 4), (32, 0, 4),
                 (192, 0, 4), (192, 0, 16)}
+# CG states the epilogue's timed calls rotate among: 4 × cg_p's 32 MB
+# (f32, the smallest working set) is well past the H100's 50 MB L2
+EPILOGUE_RING = 4
+EPILOGUE_STEPS = ("cg_pap", "cg_xr", "cg_rz", "cg_p")
+# the CG epilogue's launches by path, counted from 0 around each
+# (_epilogue_check), for the kernel record
+EPILOGUE_BY_PATH = {}
 # chunk lengths of the DSS sweep (0: make_dss_plan's rule)
 DSS_CHUNKS = [0, 2, 3, 4, 6, 8, 12, 24]
 # H100 SXM peaks (NVIDIA's data sheet, dense): HBM3 bytes/s; FLOP/s of FP32
@@ -1638,6 +1669,7 @@ def phase_parity(torch, dev):
 
 def phase_main(torch, dev):
     from pynama_tpu_torch.cases import Problem
+    from pynama_tpu_torch.ops import cg_epilogue as E
     from pynama_tpu_torch.ops.fused import fused_apply
 
     # bench.py's flagship: 3D no-slip lid-driven cavity, 24^3 ngl=4, f32
@@ -1645,6 +1677,7 @@ def phase_main(torch, dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     fused_apply.launches = 0
+    _epilogue_zero()
     p = Problem(cfg, device=dev, dtype=torch.float32, solver="cg",
                 cg_rtol=1e-6, cg_maxiter=1000)
     t0 = time.perf_counter()
@@ -1680,8 +1713,9 @@ def phase_main(torch, dev):
          run_s=run_s, s_per_step=run_s / max(steps, 1), rhs_evals=n_rhs,
          cg_iters_fs_main=[iters[i:i + 2] for i in range(0, len(iters), 2)],
          cg_loop_applies=sum(applies), fused_apply_launches=launches,
-         expected_launches=expected, peak_mem_bytes=peak,
-         kinetic_energy=ke, finite=finite)
+         expected_launches=expected, epilogue_launches={
+             k: getattr(E, k).launches for k in EPILOGUE_STEPS},
+         peak_mem_bytes=peak, kinetic_energy=ke, finite=finite)
     check(steps == 2, f"accepted {steps} steps, want 2")
     check(finite, "non-finite vort/vel")
     check(ke > 0.0, f"kinetic energy {ke} <= 0")
@@ -1692,6 +1726,7 @@ def phase_main(torch, dev):
           f"{expected} operator applications")
     check(all(n >= it for it, n in zip(iters, applies)),
           "CG made fewer operator applications than iterations")
+    _epilogue_check("main", sum(applies), eager_pc=False)
     return launches, p, t_end
 
 
@@ -1836,8 +1871,11 @@ def phase_fdm(torch, dev):
             stats = []
             solve = lambda: solve_kle_local(ops, vort, vel0, 0.0, stats)[1]
             fused_apply.launches = 0
+            _epilogue_zero()
             vel = solve()
             launches = fused_apply.launches
+            epi = _epilogue_check(f"fdm_{dname}_{pc}",
+                                  sum(n for _, n in stats), pc == "fdm")
             # per stage: Rw, apply_K(vc) and the A0 residual; the curl
             # between the stages; plus every CG-loop application
             expected = 4 * len(stats) - 1 + sum(n for _, n in stats)
@@ -1845,7 +1883,7 @@ def phase_fdm(torch, dev):
                        iters_fs_main=[int(it) for it, _ in stats],
                        loop_applies=[n for _, n in stats],
                        fused_apply_launches=launches,
-                       expected_launches=expected)
+                       expected_launches=expected, epilogue_launches=epi)
             check(len(stats) == 2 and launches == expected,
                   f"fdm {dname} {pc}: fused_apply launched {launches} "
                   f"times, the solve made {expected} operator applications "
@@ -3218,6 +3256,28 @@ def _cg_stats(cg_log):
             "cg_applies": [n for _, n in cg_log]}
 
 
+def _epilogue_zero():
+    """Set the CG epilogue's launch counters to 0."""
+    from pynama_tpu_torch.ops import cg_epilogue as E
+    for k in EPILOGUE_STEPS:
+        getattr(E, k).launches = 0
+
+
+def _epilogue_check(path, applies, eager_pc):
+    """The CG epilogue's launches since _epilogue_zero, checked against a
+    run's CG-loop applications: cg_pap, cg_xr and cg_p once per
+    application, cg_rz as often where the preconditioner is an eager call
+    (FDM, Schwarz), else never. Kept in EPILOGUE_BY_PATH[path]; returned."""
+    from pynama_tpu_torch.ops import cg_epilogue as E
+    got = {k: getattr(E, k).launches for k in EPILOGUE_STEPS}
+    want = {"cg_pap": applies, "cg_xr": applies,
+            "cg_rz": applies if eager_pc else 0, "cg_p": applies}
+    check(applies > 0 and got == want, f"{path}: CG epilogue launches "
+          f"{got}, the run made {applies} CG-loop applications: want {want}")
+    EPILOGUE_BY_PATH[path] = got
+    return got
+
+
 def _rank_rows(stats, expected):
     """Per-rank record of a sharded run, K1 against `expected`(stats)."""
     return [{"rank": s["rank"], "backend": s["backend"],
@@ -3668,6 +3728,7 @@ def _schwarz_step(torch, dev, pc):
           f"schwarz: built pc={p.engine_ops.pc}, asked {pc} on K1")
     p.cg_log = []
     fused_apply.launches = 0
+    _epilogue_zero()
     t0 = time.perf_counter()
     t_end, steps = p.start_solver(dt0=1e-3)
     torch.cuda.synchronize()
@@ -3675,6 +3736,8 @@ def _schwarz_step(torch, dev, pc):
     launches = fused_apply.launches
     stats = _cg_stats(p.cg_log)
     expected = _k1_expected(stats, True, pc=pc)
+    epi = _epilogue_check(f"schwarz_step_{pc}", sum(stats["cg_applies"]),
+                          pc == "schwarz")
     iters = stats["cg_iters"]
     finite = bool(torch.isfinite(p.vort).all()) and bool(
         torch.isfinite(p.vel).all())
@@ -3686,6 +3749,7 @@ def _schwarz_step(torch, dev, pc):
                                  for i in range(0, len(iters), 2)],
                cg_loop_applies=sum(stats["cg_applies"]),
                fused_apply_launches=launches, expected_launches=expected,
+               epilogue_launches=epi,
                peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
                finite=finite)
     check(steps == 1, f"schwarz {pc}: accepted {steps} steps, want 1")
@@ -3835,6 +3899,168 @@ def phase_schwarz(torch, dev):
             "schwarz_cli": cli_launches}
 
 
+def _cg_state(torch, dev, dtype, n, jacobi, seed):
+    """A CGState of the fused CG epilogue on random vectors of length n
+    (run and live true, k = 3) and a maker of more such vectors."""
+    from pynama_tpu_torch.ops import cg_epilogue as E
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def vec():
+        return (torch.rand(n, generator=g, dtype=torch.float64)
+                + 0.5).to(dtype).to(dev)
+
+    free = (torch.rand(n, generator=g) > 0.05).to(dtype).to(dev)
+    ep = E.Epilogue(apply=None, free=free, inv_mult=vec(),
+                    dmask=vec() if jacobi else None)
+    s = lambda x: torch.tensor(x, dtype=dtype, device=dev)
+    st = E.CGState(ep, vec(), vec(), vec(), s(2.5), s(3.0), s(1e-30),
+                   torch.tensor(True, device=dev),
+                   torch.tensor(True, device=dev),
+                   torch.tensor(3, device=dev), 1000)
+    return st, vec
+
+
+def _rotating(ring, fn):
+    """A call of fn(state, y, z) on the next of ring's (state, y, z), in
+    turn: timed back to back, the calls then read HBM, not L2."""
+    turn = [0]
+
+    def call():
+        fn(*ring[turn[0] % len(ring)])
+        turn[0] += 1
+    return call
+
+
+def _eager_update(torch, st, y, c):
+    """The eager loop's update of one Jacobi iteration on a CGState's
+    vectors, Ap = free * y included (pcg.update's launches), for the
+    yardstick; c holds the state's run flag and the constants one and zero,
+    made once as pcg's prologue makes them."""
+    inv, free, dmask, run = st.inv, st.free, st.dmask, c["run"]
+    one, zero = c["one"], c["zero"]
+    gamma, rr, tol2 = st.sf[0], st.sf[1], st.sf[5]
+    ap = free * y
+    pap = (st.p * ap * inv).sum()
+    ok = run & (pap > 0)
+    alpha = torch.where(ok, gamma / torch.where(ok, pap, one), zero)
+    x = st.x + alpha * st.p
+    r = st.r - alpha * ap
+    zz = r / dmask
+    gn, rn = (r * zz * inv).sum(), (r * r * inv).sum()
+    beta = torch.where(run, gn / torch.where(run, gamma, one), zero)
+    p = zz + beta * st.p
+    g2 = torch.where(run, gn, gamma)
+    r2 = torch.where(run, rn, rr)
+    k2 = st.si[0] + run.to(torch.int64)
+    return x, p, (r2 > tol2) & (k2 < 1000) & (g2 > 0)
+
+
+def _epilogue_rows(record):
+    """The CG epilogue's kernels in the kernel record, from
+    phase_cg_epilogue's `record` and EPILOGUE_BY_PATH: launches in the main
+    path and by path, the largest relative error against the plain version,
+    device µs and HBM bound µs by dtype and preconditioner form."""
+    err = max(max(v["rel_err"].values()) for v in record.values()
+              if "rel_err" in v)
+    return [{
+        "name": k, "route": "cuda",
+        "source": "pynama_tpu_torch/csrc/cg_epilogue.cu",
+        "replaces": "pynama_tpu/solver/cg.py:69 (the while_loop body)",
+        "launches": EPILOGUE_BY_PATH["main"][k],
+        "launches_by_path": {p: c[k] for p, c in EPILOGUE_BY_PATH.items()},
+        "max_rel_err": err, "bound_by": "hbm",
+        **{f"{form}_{q}": v["kernels"][k][q]
+           for form, v in record.items() if k in v.get("kernels", {})
+           for q in ("device_us", "bound_us")}}
+        for k in EPILOGUE_STEPS]
+
+
+def phase_cg_epilogue(torch, dev):
+    """The fused CG epilogue (ops/cg_epilogue.py) at the flagship's local
+    velocity length (24^3 ngl=4: 2,654,208 values), f32 and f64: one
+    iteration's steps, Jacobi (cg_pap, cg_xr, cg_p) and with an eager
+    preconditioner (cg_pap, cg_xr, cg_rz, cg_p), against their plain
+    versions run on copies; the launch counters; each kernel's device µs
+    beside its HBM bound, and the eager update's device µs, each timed on
+    calls that rotate among EPILOGUE_RING states. Returns the record."""
+    from pynama_tpu_torch.ops import cg_epilogue as E
+    steps = {k: getattr(E, k) for k in EPILOGUE_STEPS}
+    n = 13824 * 192
+    # vectors read and written once per call, by kernel and form
+    passes = {True: {"cg_pap": 5, "cg_xr": 8, "cg_p": 4},
+              False: {"cg_pap": 5, "cg_xr": 6, "cg_rz": 3, "cg_p": 3}}
+    calls = {"cg_pap": lambda st, y, z: E.cg_pap(st, y),
+             "cg_xr": lambda st, y, z: E.cg_xr(st, y),
+             "cg_rz": lambda st, y, z: E.cg_rz(st, z),
+             "cg_p": lambda st, y, z: E.cg_p(st, None if st.dmask is not None
+                                            else z)}
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        dn = str(dtype).split(".")[-1]
+        tol = 1e-5 if dtype == torch.float32 else 1e-12
+        eb = torch.empty((), dtype=dtype).element_size()
+        for jac in (True, False):
+            st, vec = _cg_state(torch, dev, dtype, n, jac, 11)
+            ref = {k: getattr(st, k).clone() for k in ("x", "r", "p", "sf",
+                                                         "si")}
+            y, z = vec(), vec()
+            y_ref = y.clone()
+            before = {k: f.launches for k, f in steps.items()}
+            ap = E.cg_pap(st, y)
+            E.cg_xr(st, ap)
+            if not jac:
+                E.cg_rz(st, z)
+            E.cg_p(st, None if jac else z)
+            ap_r = E.cg_pap_ref(y_ref, ref["p"], st.free, st.inv,
+                                ref["sf"], ref["si"])
+            E.cg_xr_ref(ref["x"], ref["r"], ref["p"], ap_r, st.inv,
+                        ref["sf"], ref["si"], st.maxiter, st.dmask)
+            if not jac:
+                E.cg_rz_ref(ref["r"], z, st.inv, ref["sf"], ref["si"],
+                            st.maxiter)
+            E.cg_p_ref(ref["p"], ref["r"] / st.dmask if jac else z,
+                       ref["sf"])
+            torch.cuda.synchronize()
+            launched = {k: f.launches - before[k] for k, f in steps.items()}
+            want = {"cg_pap": 1, "cg_xr": 1, "cg_rz": 0 if jac else 1,
+                    "cg_p": 1}
+            check(launched == want, f"cg_epilogue launches {launched}, "
+                  f"want {want}")
+            errs = {k: _rel(getattr(st, k).double().cpu().numpy(),
+                            ref[k].double().cpu().numpy())
+                    for k in ("x", "r", "p", "sf")}
+            errs["ap"] = _rel(ap.double().cpu().numpy(),
+                              ap_r.double().cpu().numpy())
+            check(max(errs.values()) <= tol and torch.equal(st.si, ref["si"]),
+                  f"cg_epilogue {dn} jacobi={jac}: {errs}, si "
+                  f"{st.si.tolist()} vs {ref['si'].tolist()}")
+            del st, ref, y, z, y_ref, ap, ap_r
+            ring = []
+            for i in range(EPILOGUE_RING):
+                s_i, v_i = _cg_state(torch, dev, dtype, n, jac, 20 + i)
+                ring.append((s_i, v_i(), v_i()))
+            times = {}
+            for k, nb in passes[jac].items():
+                us, _ = _device_us(torch, _rotating(ring, calls[k]))
+                times[k] = dict(device_us=us,
+                                bound_us=1e6 * nb * n * eb / HBM_BPS)
+            out[f"{dn}_{'jacobi' if jac else 'eager_pc'}"] = dict(
+                rel_err=errs, launches=launched, kernels=times)
+            if jac:
+                # the eager loop's update of one Jacobi iteration
+                eager = [(s_i, y_i, dict(
+                    run=s_i.si[1] != 0, one=s_i.sf.new_ones(()),
+                    zero=s_i.sf.new_zeros(()))) for s_i, y_i, _ in ring]
+                us, per = _device_us(torch, _rotating(
+                    eager, lambda *a: _eager_update(torch, *a)))
+                out[f"{dn}_eager_update"] = dict(device_us=us,
+                                                 kernel_names=len(per))
+            del ring
+            torch.cuda.empty_cache()
+    emit("cg_epilogue", n=n, ring=EPILOGUE_RING, **out)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3869,6 +4095,7 @@ def main() -> int:
     k1_paths.update(phase_validation(torch, dev))
     k1_paths.update(phase_analyses(torch, dev))
     k1_paths.update(phase_schwarz(torch, dev))
+    epilogue = phase_cg_epilogue(torch, dev)
 
     record["launches"] = launches
     record["launches_by_path"] = k1_paths
@@ -3892,7 +4119,7 @@ def main() -> int:
         **{k: r[k] for k in ("gemm3x_device_us", "gemm3x_bound_us",
                              "launches_by_path", "dss_pass_launches_by_path")
            if k in r}}
-        for name, src, replaces, r in kernels]}))
+        for name, src, replaces, r in kernels] + _epilogue_rows(epilogue)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -65,7 +65,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -73,6 +73,7 @@ import torch
 from pynama_tpu_torch.functions import get_function_lib
 from pynama_tpu_torch.ops import local as L
 from pynama_tpu_torch.ops import sumfact as S
+from pynama_tpu_torch.ops.cg_epilogue import Epilogue
 from pynama_tpu_torch.ops.fused import dss_pass, fused_apply
 from pynama_tpu_torch.solver.cg import pcg
 from pynama_tpu_torch.solver.fdm import (FDMOps, SlabFDM, build_fdm,
@@ -646,28 +647,47 @@ def vtensv(ops: EngineOps, vel):
 # solves
 # ---------------------------------------------------------------------------
 
-def preconditioner(ops: EngineOps, free, fdm=None):
-    """M_inv of the masked system with free-dof mask `free`: FDM when
-    ops.pc == "fdm" and `fdm` (that system's FDMOps, or a rank's SlabFDM)
-    is given, Schwarz when ops.pc == "schwarz", else Jacobi.
+class Precond(NamedTuple):
+    """A masked system's preconditioner, as `preconditioner` builds it.
+    `loop` is its form on vectors that are exactly zero on the constrained
+    dofs, the CG's (see `preconditioner`'s contract); `dmask` Jacobi's
+    divisor (loop(r) == r / dmask), else None. Called, it is the full
+    M_inv, which masks its input and passes `con*r` through, for GMRES,
+    whose vectors are not zero there. `con` (1 - free) only where that
+    needs it: Jacobi's keeps no such vector alive through a solve."""
+    loop: Callable
+    free: torch.Tensor
+    con: torch.Tensor | None
+    dmask: torch.Tensor | None = None
+
+    def __call__(self, r):
+        if self.dmask is not None:
+            return self.loop(r)     # dmask is 1 on con: r passes through
+        return self.loop(self.free * r) + self.con * r
+
+
+def preconditioner(ops: EngineOps, free, fdm=None) -> Precond:
+    """The preconditioner of the masked system with free-dof mask `free`:
+    FDM when ops.pc == "fdm" and `fdm` (that system's FDMOps, or a rank's
+    SlabFDM) is given, Schwarz when ops.pc == "schwarz", else Jacobi.
 
     CONTRACT: z = M_inv(r) keeps exact zeros on the constrained dofs
     (z_con == 0 whenever r_con == 0). _masked_solve's A0/A split rests on
     it: the in-loop operator drops the input mask and the `con*v`
-    passthrough because every loop vector stays exactly zero there. FDM
-    and Schwarz mask with `free` and re-add `con*r`; the Jacobi divide maps
-    zeros to zeros."""
+    passthrough because every loop vector stays exactly zero there. The
+    same holds of M_inv's own input mask and `con*r`, so CG takes
+    `Precond.loop`, M_inv without them: FDM and Schwarz mask their output
+    with `free`, and the Jacobi divide maps zeros to zeros."""
     con = 1.0 - free
     if ops.pc == "fdm" and isinstance(fdm, SlabFDM):
-        def M_inv(r):
-            z = fdm_apply_slab(fdm, free * r, ops.nelem, ops.ngl, ops.comm)
-            return free * z + con * r
-        return M_inv
+        def loop(r):
+            return free * fdm_apply_slab(fdm, r, ops.nelem, ops.ngl,
+                                         ops.comm)
+        return Precond(loop, free, con)
     if ops.pc == "fdm" and fdm is not None:
-        def M_inv(r):
-            z = fdm_apply(fdm, free * r, nelem=ops.nelem, ngl=ops.ngl)
-            return free * z + con * r
-        return M_inv
+        def loop(r):
+            return free * fdm_apply(fdm, r, nelem=ops.nelem, ngl=ops.ngl)
+        return Precond(loop, free, con)
     dmask = free * ops.diag + con
     if ops.pc == "schwarz":
         # weighted additive overlapping Schwarz by element
@@ -675,16 +695,24 @@ def preconditioner(ops: EngineOps, free, fdm=None):
         # the element null space; both restricted to the free subspace
         inv_mult = ops.lay_v.inv_mult
 
-        def M_inv(r):
-            rf = free * r
-            z = _apply_mat(ops, ops.lay_v, rf * inv_mult, ops.KinvT) \
+        def loop(r):
+            z = _apply_mat(ops, ops.lay_v, r * inv_mult, ops.KinvT) \
                 * inv_mult
-            return free * z + 0.5 * rf / dmask + con * r
-        return M_inv
+            return free * z + 0.5 * r / dmask
+        return Precond(loop, free, con)
+    return Precond(lambda r: r / dmask, free, None, dmask)
 
-    def M_inv(r):
-        return r / dmask
-    return M_inv
+
+def _cg_epilogue(ops: EngineOps, free, pc: Precond):
+    """pcg's fused epilogue for the masked system, or None on a sharded
+    engine, whose dot products need a psum between the partial sums and
+    the scalars. Its operator is the loop's `A` without the output mask;
+    its preconditioner Jacobi's divisor, folded into the kernels, or else
+    pcg's eager M_inv."""
+    if _sharded(ops):
+        return None
+    return Epilogue(apply=lambda v: apply_K(ops, v), free=free,
+                    inv_mult=ops.lay_v.inv_mult, dmask=pc.dmask)
 
 
 def _masked_solve(ops: EngineOps, free, vort, vel, stats=None, fdm=None,
@@ -698,7 +726,8 @@ def _masked_solve(ops: EngineOps, free, vort, vel, stats=None, fdm=None,
     applies the preconditioner once more than the count. The solve is a
     `kle.solve` span with attrs method, stage ("fs" or "main"),
     loop_applies (the count above, a host int) and iters (a device
-    tensor)."""
+    tensor); a CG solve also with epilogue: "fused" where pcg runs its
+    loop through ops/cg_epilogue.py (`_cg_epilogue`), else "eager"."""
     with span("kle.solve") as sp:
         sp.attrs["method"], sp.attrs["stage"] = ops.krylov, stage
         con = 1.0 - free
@@ -719,17 +748,21 @@ def _masked_solve(ops: EngineOps, free, vort, vel, stats=None, fdm=None,
             trajectory."""
             return free * apply_K(ops, v)
 
-        M_inv = preconditioner(ops, free, fdm)
+        pc = preconditioner(ops, free, fdm)
         if ops.krylov == "gmres":
-            res = gmres(A0, b, free * vel + vc, M_inv=M_inv,
+            res = gmres(A0, b, free * vel + vc, M_inv=pc,
                         rtol=ops.cg_rtol, atol=ops.cg_atol,
                         maxiter=ops.cg_maxiter, dot=_dot_v(ops))
             counted = res.applies
         else:
-            res = pcg(A, b, free * vel + vc, M_inv=M_inv,
+            ep = _cg_epilogue(ops, free, pc)
+            sp.attrs["epilogue"] = "eager" if ep is None else "fused"
+            # r0 is zero on the constrained dofs too (A's docstring): the
+            # prologue takes the loop's form of M_inv as well
+            res = pcg(A, b, free * vel + vc, M_inv=pc.loop,
                       rtol=ops.cg_rtol, atol=ops.cg_atol,
                       maxiter=ops.cg_maxiter, dot=_dot_v(ops), A0=A0,
-                      dots=_dots_v(ops))
+                      dots=_dots_v(ops), epilogue=ep)
             counted = res.loop_applies
         sp.attrs["loop_applies"], sp.attrs["iters"] = counted, res.iters
     if stats is not None:

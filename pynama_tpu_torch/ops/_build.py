@@ -66,6 +66,8 @@ _DSS = [_VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _VP]
 # ngl, ncomp, dim, ne0, ne1, ne2, elem_bytes, chunk, out (int[5]); launches
 # nothing
 _DSS_PLAN = [_I32] * 8 + [ctypes.POINTER(_I32)]
+# the address of one solve's launch arguments (ops/cg_epilogue.py _Args)
+_CG = [_VP]
 SIGNATURES = {
     "pn_fused_apply_f32": _FUSED, "pn_fused_apply_f64": _FUSED,
     "pn_plainmm_f32": _PLAINMM, "pn_plainmm_f64": _PLAINMM,
@@ -74,6 +76,7 @@ SIGNATURES = {
     "pn_fused3x_f32": _FUSED3X, "pn_gemm3x_f32": _GEMM3X,
     "pn_gemm3x_plan": _GEMM3X_PLAN,
     "pn_dss_f32": _DSS, "pn_dss_f64": _DSS, "pn_dss_plan": _DSS_PLAN,
+    "pn_cg_pap": _CG, "pn_cg_xr": _CG, "pn_cg_rz": _CG, "pn_cg_p": _CG,
 }
 
 

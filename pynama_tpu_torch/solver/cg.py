@@ -11,12 +11,27 @@ count are those of the reference; the cost is up to `check_every - 1`
 operator applications after convergence, against one host sync per
 iteration saved.
 
+The fused epilogue (`epilogue=`, ops/cg_epilogue.py): the loop's work
+between one operator application and the next runs as three hand-written
+CUDA kernels on a card (cg_pap, cg_xr, cg_p; four, with cg_rz, where the
+preconditioner is not pointwise and stays an eager call), in place of some
+36 eager launches, with every CG scalar (gamma, rr, pAp, alpha, beta, k,
+run) kept on the card. The prologue (the first residual, tol2, live), the
+stop checks and the counts are the eager loop's. On the CPU the kernels'
+plain versions repeat the eager loop's expressions: the iterates, the
+iteration count and `loop_applies` are bitwise the eager loop's. On a card
+the kernels sum in float64 in a fixed order: the iterates equal the eager
+loop's to rounding, and two runs give bitwise the same. The caller passes
+an epilogue only where the dot products need no reduction across ranks.
+
 Spans (utils/profiling.py; no-ops unless a trace is on): every operator
-application is a `pcg.apply`, every preconditioner application a
+application is a `pcg.apply`, every eager preconditioner application a
 `pcg.precond`, the host read of `run` a `pcg.check`, and the rest of the
-loop's launches (dots, scalar and vector updates) `pcg.update`. The
-condition `run` of the next iteration is formed at the end of the body,
-inside the same `pcg.update` as the updates it reads.
+loop's launches (dots, scalar and vector updates; the epilogue's kernels)
+`pcg.update`. The condition `run` of the next iteration is formed at the
+end of the body, inside the same `pcg.update` as the updates it reads. With
+a Jacobi epilogue no `pcg.precond` opens inside the loop: the divide is
+folded into cg_xr and cg_p.
 
 Stopping rule, exactly the reference's: iterate while rr > tol2 and
 k < maxiter and gamma > 0 and bnorm2 > 0, with tol2 = max(rtol·||b||,
@@ -28,6 +43,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from pynama_tpu_torch.ops import cg_epilogue as E
 from pynama_tpu_torch.utils.profiling import span
 
 
@@ -48,7 +64,8 @@ def pcg(A: Callable, b: torch.Tensor, x0: torch.Tensor,
         M_inv: Callable | None = None, rtol: float = 1e-12,
         atol: float = 0.0, maxiter: int = 1000,
         dot: Callable | None = None, A0: Callable | None = None,
-        check_every: int = 8, dots: Callable | None = None) -> CGResult:
+        check_every: int = 8, dots: Callable | None = None,
+        epilogue: E.Epilogue | None = None) -> CGResult:
     """Solve A x = b with preconditioned CG.
 
     A and M_inv are linear callables on tensors of b's shape. Stopping:
@@ -62,6 +79,15 @@ def pcg(A: Callable, b: torch.Tensor, x0: torch.Tensor,
     dots(pairs), when given, returns [dot(a, b) for a, b in pairs] in one
     go (a sharded run reduces them in one collective); the values must be
     those of `dot`.
+
+    epilogue, when given, runs the loop through ops/cg_epilogue.py (see the
+    module docstring). Its operator `free * epilogue.apply(v)` must equal
+    A. Its `dmask`, where given, must be the divisor of a pointwise M_inv;
+    otherwise the loop calls M_inv. Its `inv_mult`-weighted dot products
+    must be those of `dot` and `dots`. The prologue still takes A0, M_inv
+    and dots. Without it the loop is written in the same step functions
+    (ops/cg_epilogue.py alpha_step, xr_step, scalar_step, p_step) that the
+    epilogue's plain versions run.
     """
     if M_inv is None:
         M_inv = lambda r: r
@@ -81,10 +107,11 @@ def pcg(A: Callable, b: torch.Tensor, x0: torch.Tensor,
         tol2 = torch.clamp(rtol * torch.sqrt(bnorm2), min=atol) ** 2
         x, p = x0, z
         k = torch.zeros((), dtype=torch.int64, device=b.device)
-        zero = torch.zeros((), dtype=b.dtype, device=b.device)
-        one = torch.ones((), dtype=b.dtype, device=b.device)
         live = bnorm2 > 0            # loop-invariant part of the condition
         run = (rr > tol2) & (k < maxiter) & (gamma > 0) & live
+    if epilogue is not None:
+        return _fused_loop(epilogue, M_inv, x0, r, z, gamma, rr, tol2, live,
+                           run, k, maxiter, check_every)
 
     n = 0
     while n < maxiter:
@@ -96,24 +123,49 @@ def pcg(A: Callable, b: torch.Tensor, x0: torch.Tensor,
         with span("pcg.apply"):
             Ap = A(p)
         with span("pcg.update"):
-            pAp = dot(p, Ap)
-            ok = run & (pAp > 0)
-            alpha = torch.where(ok, gamma / torch.where(ok, pAp, one), zero)
-            x = x + alpha * p
-            r = r - alpha * Ap
+            _, alpha = E.alpha_step(p, Ap, gamma, run, dot)
+            x, r = E.xr_step(x, r, p, Ap, alpha)
         with span("pcg.precond"):
             z = M_inv(r)
         with span("pcg.update"):
-            gamma_new, rr_new = dots([(r, z), (r, r)])
-            beta = torch.where(run, gamma_new / torch.where(run, gamma, one),
-                               zero)
-            p = z + beta * p
-            gamma = torch.where(run, gamma_new, gamma)
-            rr = torch.where(run, rr_new, rr)
-            k = k + run.to(k.dtype)
-            run = (rr > tol2) & (k < maxiter) & (gamma > 0) & live
+            beta, gamma, rr, k, run = E.scalar_step(
+                r, z, gamma, rr, k, run, tol2, live, maxiter, dots)
+            p = E.p_step(z, p, beta)
         n += 1
     with span("pcg.update"):
         x = torch.where(live, x, torch.zeros_like(x))
         residual = torch.sqrt(rr)
     return CGResult(x=x, iters=k, residual=residual, loop_applies=n)
+
+
+def _fused_loop(ep: E.Epilogue, M_inv, x0, r, z, gamma, rr, tol2, live, run,
+                k, maxiter: int, check_every: int) -> CGResult:
+    """pcg's loop through the epilogue's steps, from the prologue's
+    values."""
+    with span("pcg.update"):
+        st = E.CGState(ep, x0, r, z, gamma, rr, tol2, live, run, k, maxiter)
+    pointwise = ep.dmask is not None
+    n = 0
+    while n < maxiter:
+        if n % check_every == 0:
+            with span("pcg.check"):
+                stop = not st.running()
+            if stop:
+                break
+        with span("pcg.apply"):
+            y = ep.apply(st.p)
+        with span("pcg.update"):
+            ap = E.cg_pap(st, y)
+            E.cg_xr(st, ap)
+            if pointwise:
+                E.cg_p(st)
+        if not pointwise:
+            with span("pcg.precond"):
+                z = M_inv(st.r)
+            with span("pcg.update"):
+                E.cg_rz(st, z)
+                E.cg_p(st, z)
+        n += 1
+    with span("pcg.update"):
+        x, iters, residual = st.result()
+    return CGResult(x=x, iters=iters, residual=residual, loop_applies=n)

@@ -91,7 +91,8 @@ def _masked_solve(K_op: ElementOp, Rw_op: ElementOp, sys: KLESystem,
     application counted, as in GMRESResult). The solve is a `kle.solve`
     span with attrs method and stage ("fs" or "main"), and for an
     iterative solve loop_applies (the count above, a host int) and iters
-    (a device tensor)."""
+    (a device tensor); a cg solve also epilogue "eager" (pcg's eager loop,
+    never the fused one of the engine)."""
     with span("kle.solve") as sp:
         sp.attrs["method"], sp.attrs["stage"] = sys.method, stage
         free = sys.free
@@ -132,6 +133,7 @@ def _masked_solve(K_op: ElementOp, Rw_op: ElementOp, sys: KLESystem,
                         atol=sys.cg_atol, maxiter=sys.cg_maxiter)
             counted = res.applies
         else:
+            sp.attrs["epilogue"] = "eager"
             res = pcg(A, b, x0, M_inv=M_inv, rtol=sys.cg_rtol,
                       atol=sys.cg_atol, maxiter=sys.cg_maxiter, A0=A0)
             counted = res.loop_applies

@@ -152,8 +152,11 @@ def test_engine_route_nesting_and_counts(trace):
         kids = [r.name for r in _children(recs, j)]
         assert set(kids) == {"pcg.apply", "pcg.precond", "pcg.update",
                              "pcg.check"}
+        assert a["epilogue"] == "fused"
         assert kids.count("pcg.apply") == applies + 1
-        assert kids.count("pcg.precond") == applies + 1
+        # Jacobi: the fused epilogue divides in its kernels, so only the
+        # prologue's z = M_inv(r0) opens a pcg.precond
+        assert kids.count("pcg.precond") == 1
         # converged: a read at every check_every-th iteration, the last
         # one finding the loop done
         assert kids.count("pcg.check") == applies // check_every + 1
