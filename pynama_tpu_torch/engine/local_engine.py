@@ -508,18 +508,32 @@ def _value_buffer(ops: EngineOps, time, attr: str,
 
     Constant sides are baked in; analytic-function sides are evaluated on
     their slot coordinates (on the device; alpha is a host float, so no
-    sync) and written on top, one side after the other in side order."""
+    sync) and written on top, one side after the other in side order; on
+    an unstructured mesh that loop is a `bc.func` span with attr sides."""
     if const is None:
         const = ops.const_vel if attr == "velocity" else ops.const_vort
     if not ops.func_sides:
         return const
     ncomp = ops.dim if attr == "velocity" else ops.dim_w
     U = const.reshape(-1, ncomp).clone()
+    if ops.lay_v.structured:
+        _write_func_sides(ops, U, time, attr)
+    else:
+        # a `bc.func` span on the unstructured route only, as the other
+        # spans of that route (apply_k.element, dss.gather)
+        with span("bc.func") as sp:
+            sp.attrs["sides"] = len(ops.func_sides)
+            _write_func_sides(ops, U, time, attr)
+    return U.reshape(const.shape)
+
+
+def _write_func_sides(ops: EngineOps, U, time, attr: str):
+    """Each analytic-function side's values at `time` into the rows of U
+    (E*nn, ncomp), in side order."""
     for fs in ops.func_sides:
         lib = get_function_lib(fs.func_name)
         a = lib.alpha(ops.nu, time)
         U[fs.rows] = getattr(lib, attr)(fs.coords, a).to(U.dtype)
-    return U.reshape(const.shape)
 
 
 def apply_velocity_bc(ops: EngineOps, vel, time):
@@ -572,9 +586,14 @@ def _dots_v(ops: EngineOps):
 
 
 def _dss(ops: EngineOps, lay, t):
-    """Plain DSS dispatch: the overlapped variant when sharded with
-    overlap_dss on a box mesh."""
-    if _sharded(ops) and ops.overlap_dss and lay.structured:
+    """Plain DSS dispatch: on an unstructured mesh the gather DSS, a
+    `dss.gather` span with attr ncomp; the overlapped variant when sharded
+    with overlap_dss on a box mesh."""
+    if not lay.structured:
+        with span("dss.gather") as sp:
+            sp.attrs["ncomp"] = lay.ncomp
+            return L.dss(lay, t, ops.comm)
+    if _sharded(ops) and ops.overlap_dss:
         return L.dss_overlapped(lay, L.make_plane_layout(lay), t, ops.comm)
     return L.dss(lay, t, ops.comm)
 
@@ -610,10 +629,20 @@ def apply_K(ops: EngineOps, v):
     """K v assembled: the dense route of _apply_mat, or with ops.sumfact
     the sum-factorized product and then the DSS (K1's DSS pass alone on a
     box mesh with ops.fused, its planes exchanged when sharded; else the
-    plain one)."""
+    plain one). On an unstructured mesh the element product, whichever
+    computes it, is an `apply_k.element` span with attrs route ("sumfact"
+    or "dense"), E and ngl, and the DSS the gather DSS."""
+    if not ops.lay_v.structured:
+        with span("apply_k.element") as sp:
+            sp.attrs["route"] = "dense" if ops.sumfact is None \
+                else "sumfact"
+            sp.attrs["E"], sp.attrs["ngl"] = v.shape[0], ops.ngl
+            z = L.emm(v, ops.KT) if ops.sumfact is None \
+                else S.apply_sumfact_k(ops.sumfact, v)
+        return _dss(ops, ops.lay_v, z)
     if ops.sumfact is not None:
         z = S.apply_sumfact_k(ops.sumfact, v)
-        if ops.fused and ops.lay_v.structured:
+        if ops.fused:
             y, bnd = dss_pass(z, ops.nelem, ops.ngl, ops.dim)
             return _add_neighbour_planes(ops, ops.lay_v, y, bnd)
         return _dss(ops, ops.lay_v, z)
