@@ -173,7 +173,12 @@ exits non-zero without the final result line:
             mesh: apply_K (sumfact product + K1's DSS pass, dss_pass)
             within 1e-5 of K1's, device µs of each part beside K1's, and
             one rhs_local of the flagship's state: K1 6 launches, the DSS
-            pass 4 + the CG loops' applications
+            pass 4 + the CG loops' applications; (g) first, the sumfact
+            kernel (csrc/sumfact_apply.cu) against apply_sumfact_k_ref at
+            every instantiated (dim, ngl) and at 25^3 ngl=3, 10^3 ngl=3
+            and 4 (f32 within F32_LIMIT, f64 SUMFACT_F64_LIMIT), its
+            device µs beside the bound and the plain chain's; in (b) one
+            sumfact launch per apply_k.element span
 15. ibm     the three IBM case files at their own meshes through
             run_case.make_problem, f32 (CG rtol 1e-6 where "auto" takes
             CG), each cut to IBM_STEPS accepted steps replaying the steps
@@ -385,6 +390,16 @@ UNSTRUCT_STEPS, UNSTRUCT_CLI_STEPS = 3, 2
 # twice the error
 HEX_TG3D_REF_ERR = 0.055305306882286326
 HEX_TG3D_REF_T = 0.01695056634805064
+# the sumfact kernel (csrc/sumfact_apply.cu) against apply_sumfact_k_ref:
+# every instantiated (dim, ngl) at SUMFACT_SMALL_E random distorted
+# elements, and exp/sumfact_roofline.py's distorted hexes at (E1d, ngl),
+# relative max-norm within F32_LIMIT (f32) and SUMFACT_F64_LIMIT (f64); the
+# timed calls rotate among SUMFACT_RING copies of the inputs (3 x 30 MB at
+# 25^3 ngl=3 is past the H100's 50 MB L2)
+SUMFACT_SMALL_E = 37
+SUMFACT_TIMED = ((25, 3), (10, 3), (10, 4))
+SUMFACT_F64_LIMIT = 1e-12
+SUMFACT_RING = 3
 QUAD_TG_REF_ERR = 0.0037709075973298566
 QUAD_TG_REF_T = 0.012625623463579282
 # the ibm phase: the three IBM case files at their own meshes, f32, depth
@@ -2645,8 +2660,76 @@ def _sumfact_cost(sf, E):
     tensors = (sf.Gt, sf.Jrt, sf.wr, sf.Df_flat, sf.Dr_flat, sf.v2cm,
                sf.cm2v)
     nbytes = sum(t.numel() * t.element_size() for t in tensors) \
-        + 2 * E * dim * nn * 4
+        + 2 * E * dim * nn * sf.Gt.element_size()
     return flops, nbytes
+
+
+def _distorted_elements(rng, dim, n):
+    """(n, 2**dim, dim) corners of n unit elements (the mesh's corner
+    order), each corner moved by uniform(-0.15, 0.15) per axis."""
+    unit = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], float) if dim == 2 \
+        else np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0],
+                       [0, 0, 1], [1, 0, 1], [1, 1, 1], [0, 1, 1]], float)
+    return unit[None] + rng.uniform(-0.15, 0.15, (n,) + unit.shape)
+
+
+def _sumfact_kernel(torch, dev):
+    """(g): csrc/sumfact_apply.cu against apply_sumfact_k_ref, the first
+    launch synchronized: every instantiated (dim, ngl) at SUMFACT_SMALL_E
+    distorted elements, then exp/sumfact_roofline.py's hexes at
+    SUMFACT_TIMED, each with the kernel's and the plain chain's device µs
+    (calls rotating among SUMFACT_RING copies) beside the bound
+    (_sumfact_cost, benchmark/counts_hex.py's count); f32 and f64."""
+    import dataclasses
+    import itertools
+    from pynama_tpu_torch.basis import make_tensor_basis
+    from pynama_tpu_torch.exp import sumfact_roofline as R
+    from pynama_tpu_torch.ops import sumfact as S
+
+    kinds = ((torch.float32, F32_LIMIT), (torch.float64, SUMFACT_F64_LIMIT))
+    rng = np.random.default_rng(7)
+    small, first = [], True
+    for dim in S.KERNEL_DIMS:
+        for ngl in S.KERNEL_NGL:
+            corners = _distorted_elements(rng, dim, SUMFACT_SMALL_E)
+            t64 = rng.standard_normal((SUMFACT_SMALL_E, dim * ngl ** dim))
+            for dtype, limit in kinds:
+                sf = S.build_sumfact(make_tensor_basis(ngl, dim), corners,
+                                     device=dev, dtype=dtype)
+                t = torch.as_tensor(t64, dtype=dtype, device=dev)
+                y = S.apply_sumfact_k(sf, t)
+                if first:
+                    torch.cuda.synchronize()
+                    first = False
+                small.append(dict(
+                    dim=dim, ngl=ngl, dtype=str(dtype)[6:], limit=limit,
+                    rel=_rel(y.cpu().numpy(),
+                             S.apply_sumfact_k_ref(sf, t).cpu().numpy())))
+    timed = []
+    for e1d, ngl in SUMFACT_TIMED:
+        for dtype, limit in kinds:
+            sf, t = R.inputs(e1d, ngl, dev, dtype)
+            E = t.shape[0]
+            ring = [(sf, t)] + [(dataclasses.replace(
+                sf, Gt=sf.Gt.clone(), Jrt=sf.Jrt.clone(), wr=sf.wr.clone()),
+                t.clone()) for _ in range(SUMFACT_RING - 1)]
+            rel = _rel(S.apply_sumfact_k(sf, t).cpu().numpy(),
+                       S.apply_sumfact_k_ref(sf, t).cpu().numpy())
+            nxt = itertools.cycle(ring).__next__
+            us, _ = _device_us(torch, lambda: S.apply_sumfact_k(*nxt()))
+            plain_us, plain = _device_us(
+                torch, lambda: S.apply_sumfact_k_ref(*nxt()))
+            flops, nbytes = _sumfact_cost(sf, E)
+            bound = _bound(flops, PEAK_FLOPS[str(dtype)[6:]], nbytes)
+            timed.append(dict(
+                mesh=f"{e1d}^3 ngl={ngl}", E=E, dtype=str(dtype)[6:],
+                rel=rel, limit=limit, device_us=us,
+                bound_us=bound[0] * 1e3, bound_by=bound[1],
+                roofline_pct=100 * bound[0] * 1e3 / us,
+                plain_device_us=plain_us, plain_kernels=len(plain)))
+            del ring, sf, t
+    torch.cuda.empty_cache()
+    return small, timed
 
 
 def _index_bytes(lay):
@@ -2783,8 +2866,9 @@ def _unstructured_transient(torch, dev, cfg, ref_err, **opts):
 
 
 def phase_unstructured(torch, dev, flagship, t_flagship):
-    """gmsh meshes through the port's entry points on the card: (a)
-    bench.py's hex K apply, sumfact against dense; (b) the 3D Taylor-Green
+    """gmsh meshes through the port's entry points on the card: (g) first,
+    the sumfact kernel against its plain version; (a) bench.py's hex K
+    apply, sumfact against dense; (b) the 3D Taylor-Green
     transient on those hexes; (c) 50^2 distorted quads under "auto" (the
     direct solve); (d) sumfact=True on the flagship box mesh against K1;
     (f) a gmsh case file through run_case. Returns K1's launches in (a)-(c)
@@ -2796,7 +2880,15 @@ def phase_unstructured(torch, dev, flagship, t_flagship):
     from pynama_tpu_torch.ops.fused import dss_pass, fused_apply
     from pynama_tpu_torch.ops.sumfact import apply_sumfact_k
 
+    from pynama_tpu_torch.utils.profiling import tracing
+
     t_phase = time.perf_counter()
+    # (g) the sumfact kernel against its plain version
+    small, timed = _sumfact_kernel(torch, dev)
+    emit("unstructured_sumfact_kernel", small=small, timed=timed)
+    for r in small + timed:
+        check(r["rel"] <= r["limit"], f"unstructured (g): sumfact kernel "
+              f"vs plain {r} relative {r['rel']:.3e} > {r['limit']}")
     cwd, tmp = os.getcwd(), tempfile.mkdtemp(prefix="unstructured-")
     k1_unstructured = 0
     try:
@@ -2819,15 +2911,23 @@ def phase_unstructured(torch, dev, flagship, t_flagship):
               "unstructured (a): the gather DSS left duplicates unequal")
         check(fused_apply.launches == 0, "unstructured (a): K1 launched")
 
-        # (b) the 3D Taylor-Green transient on the hexes
-        p, row, _ = _unstructured_transient(
-            torch, dev, gmsh_tg_config(hex_path, "taylor_green3d", 4,
-                                       UNSTRUCT_STEPS), HEX_TG3D_REF_ERR,
-            solver="cg", cg_rtol=1e-6, cg_maxiter=1000)
+        # (b) the 3D Taylor-Green transient on the hexes, the program's
+        # spans on: one sumfact launch per apply_k.element span
+        launches0 = apply_sumfact_k.launches
+        trace = tracing()
+        try:
+            p, row, _ = _unstructured_transient(
+                torch, dev, gmsh_tg_config(hex_path, "taylor_green3d", 4,
+                                           UNSTRUCT_STEPS), HEX_TG3D_REF_ERR,
+                solver="cg", cg_rtol=1e-6, cg_maxiter=1000)
+        finally:
+            trace.stop()
         k1_unstructured += row["k1_launches"]
         ops = p.engine_ops
         row.update(sumfact=ops.sumfact is not None, func_sides=len(
-            ops.func_sides), jax_ref_t_end=HEX_TG3D_REF_T)
+            ops.func_sides), jax_ref_t_end=HEX_TG3D_REF_T,
+            sumfact_launches=apply_sumfact_k.launches - launches0,
+            apply_k_spans=trace.names.count("apply_k.element"))
         del p, ops
         emit("unstructured_hex_tg3d", config=f"taylor_green3d on the "
              f"{HEX_N}^3 hexes, ngl=4 f32 cg_rtol=1e-6", **row)
@@ -2838,6 +2938,9 @@ def phase_unstructured(torch, dev, flagship, t_flagship):
               "unstructured (b): want the engine's CG with sumfact K")
         check(row["k1_launches"] == 0 and row["dss_pass_launches"] == 0,
               "unstructured (b): K1 or its DSS pass launched")
+        check(row["sumfact_launches"] == row["apply_k_spans"] > 0,
+              f"unstructured (b): {row['sumfact_launches']} sumfact "
+              f"launches, {row['apply_k_spans']} apply_k.element spans")
         check(row["vort_rel_max_err"] <= row["err_limit"],
               f"unstructured (b): vorticity error "
               f"{row['vort_rel_max_err']:.3e} > {row['err_limit']:.3e}")

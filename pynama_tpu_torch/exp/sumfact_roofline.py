@@ -1,16 +1,18 @@
 """Sum-factorized hex apply: roofline and phase decomposition on the device
 (port of the JAX package's exp/sumfact_roofline.py).
 
-Three nested prefixes of `ops/sumfact.py::apply_sumfact_k`, timed
-interleaved (`exp.interleaved_slopes`):
+Three nested prefixes of the plain chain
+`ops/sumfact.py::apply_sumfact_k_ref`, and the kernel, timed interleaved
+(`exp.interleaved_slopes`):
 
   P0 the component-major gather and both gradient matmuls (returns their
      sum)
   P1 P0 + the stiffness contraction and its scatter matmul (no penalties)
-  P2 the full apply
+  P2 the full plain apply
+  kernel `apply_sumfact_k`: on a card one launch of csrc/sumfact_apply.cu
 
-so that P0, P1 - P0 and P2 - P1 localize the cost: gradient matmuls,
-stiffness FMAs + scatter, penalty chain. The geometry is E1d^3 hexes on
+so that P0, P1 - P0 and P2 - P1 localize the plain chain's cost: gradient
+matmuls, stiffness FMAs + scatter, penalty chain. The geometry is E1d^3 hexes on
 [0,1]^3 with interior vertices moved by uniform(-0.12, 0.12) / E1d from
 numpy's default_rng(0), and t is standard normal from the same generator;
 float32, matmuls in full f32 (config.py pins TF32 off).
@@ -162,7 +164,8 @@ def main(argv=None) -> dict:
 
     specs = [("P0_grad_matmuls", chain_of(phase0), (sf, t)),
              ("P1_plus_stiffness", chain_of(phase1), (sf, t)),
-             ("P2_full", chain_of(SF.apply_sumfact_k), (sf, t))]
+             ("P2_full", chain_of(SF.apply_sumfact_k_ref), (sf, t)),
+             ("kernel", chain_of(SF.apply_sumfact_k), (sf, t))]
     res = interleaved_slopes(specs, n1=args.n1, target_s=args.target_s,
                              rounds=args.rounds)
     for k, (per, floor) in res.items():
@@ -171,12 +174,14 @@ def main(argv=None) -> dict:
     p0 = res["P0_grad_matmuls"][0]
     p1 = res["P1_plus_stiffness"][0]
     p2 = res["P2_full"][0]
+    kern = res["kernel"][0]
     print(f"\ndecomposition: gradient matmuls {p0*1e6:.1f}, "
           f"stiffness FMA+scatter {(p1-p0)*1e6:.1f}, "
-          f"penalty chain {(p2-p1)*1e6:.1f} us "
+          f"penalty chain {(p2-p1)*1e6:.1f} us; kernel {kern*1e6:.1f} us "
           f"(bound {roof['bound_us']:.2f} us)")
     out = {"device": device_name(dev), "E": E, "ngl": args.ngl,
            "P0_us": p0 * 1e6, "P1_us": p1 * 1e6, "P2_us": p2 * 1e6,
+           "kernel_us": kern * 1e6,
            "stiffness_us": (p1 - p0) * 1e6, "penalty_us": (p2 - p1) * 1e6,
            "roofline": roof, "rounds": args.rounds}
     print(json.dumps(out), flush=True)

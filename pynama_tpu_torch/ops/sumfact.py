@@ -26,13 +26,24 @@ with Dstackᵀ per family. Four shared matmuls in all, in full f32
 (config.py pins TF32 off).
 
 `build_sumfact` is host numpy (setup) and returns a `SumFactK` of tensors
-on the given device; `apply_sumfact_k` is torch. The result equals
-`elements/kle.py compute_kle_matrices`' K applied per element (same
-quadrature families). The engine uses it for K on unstructured meshes by
-default, and on box meshes when asked (`build_engine(..., sumfact=True)`).
+on the given device. `apply_sumfact_k` has two routes:
+
+- on a CUDA tensor, one launch of the hand-written kernel of
+  `csrc/sumfact_apply.cu` (built into the kernels' library by
+  `ops/_build.py`), which applies the 1D operators of `one_d_tables` axis by
+  axis and keeps every intermediate on chip; a shape it does not take
+  raises, there is no fallback;
+- on a CPU tensor, the plain PyTorch version `apply_sumfact_k_ref` below
+  (the chain of matmuls and pointwise ops described above).
+
+The result equals `elements/kle.py compute_kle_matrices`' K applied per
+element (same quadrature families). The engine uses it for K on
+unstructured meshes by default, and on box meshes when asked
+(`build_engine(..., sumfact=True)`).
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -64,6 +75,9 @@ class SumFactK:
     ngl: int
     alpha_w: float = ALPHA_W
     alpha_d: float = ALPHA_D
+    #: the kernel's launch arguments, bound at the first CUDA call
+    _launch: dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False, compare=False)
 
     @property
     def nqf(self) -> int:
@@ -102,6 +116,23 @@ def _flat_stack(H: np.ndarray, D: np.ndarray, dim: int) -> np.ndarray:
     return np.concatenate(blocks, axis=1)        # (nn, dim*nq)
 
 
+def one_d_tables(ngl: int):
+    """(Hf, Df, Hr, Dr), float64: the Lagrange values and derivatives of
+    the ngl Lobatto nodes, [q, i], at the full family's 1D points (Gauss
+    for ngl <= 3, else Lobatto) and at the reduced family's (ngl-1 Gauss).
+    `sumfact_arrays`' flat tables are their Kronecker products
+    (`_flat_stack`); the kernel applies them axis by axis."""
+    nodes1d, _ = lobatto_points(ngl)
+    if ngl <= 3:
+        fq, _ = gauss_points(ngl)
+    else:
+        fq, _ = lobatto_points(ngl)
+    rq, _ = gauss_points(ngl - 1)
+    Hf, Df = lagrange_basis(nodes1d, fq)
+    Hr, Dr = lagrange_basis(nodes1d, rq)
+    return Hf, Df, Hr, Dr
+
+
 def sumfact_arrays(basis, corners: np.ndarray, alpha_w: float = ALPHA_W,
                    alpha_d: float = ALPHA_D) -> dict:
     """The numpy fields of a SumFactK (keys: FIELDS), float64, from a
@@ -118,14 +149,7 @@ def sumfact_arrays(basis, corners: np.ndarray, alpha_w: float = ALPHA_W,
     Jr, wr = _family_geometry(basis.reduced.DCoo, basis.reduced.weights,
                               corners)
 
-    nodes1d, _ = lobatto_points(ngl)
-    if ngl <= 3:
-        fq, _ = gauss_points(ngl)
-    else:
-        fq, _ = lobatto_points(ngl)
-    rq, _ = gauss_points(ngl - 1)
-    Hf, Df = lagrange_basis(nodes1d, fq)
-    Hr, Dr = lagrange_basis(nodes1d, rq)
+    Hf, Df, Hr, Dr = one_d_tables(ngl)
 
     dst = np.arange(dim * nn)
     return dict(
@@ -162,10 +186,9 @@ def build_sumfact(basis, corners: np.ndarray, *, device, dtype,
                               device=device, dtype=dtype)
 
 
-def apply_sumfact_k(sf: SumFactK, t: torch.Tensor) -> torch.Tensor:
-    """y = t @ K_eᵀ per element, (E, nnode·dim) -> (E, nnode·dim): the
-    un-assembled element product (the caller DSSes, as with the dense
-    path)."""
+def apply_sumfact_k_ref(sf: SumFactK, t: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of `apply_sumfact_k` (its route on the
+    CPU): the chain of shared matmuls and pointwise multiply-adds."""
     dim, N = sf.dim, sf.ngl
     nn = N ** dim
     E = t.shape[0]
@@ -244,3 +267,99 @@ def apply_sumfact_k(sf: SumFactK, t: torch.Tensor) -> torch.Tensor:
     sr_stack = torch.stack(sr, dim=2).reshape(E * dim, dim * nqr)
     y = sf_stack @ sf.Df_flat.T + sr_stack @ sf.Dr_flat.T
     return y.reshape(E, dim * nn)[:, sf.cm2v]
+
+
+# ------------------------------------------------------------- the kernel
+#: the (dim, ngl) the kernel is instantiated for (csrc/sumfact_apply.cu)
+KERNEL_DIMS = (2, 3)
+KERNEL_NGL = range(2, 9)
+#: float64 slots of _Args.tab: Hf, Df, Hr, Dr row-major at ngl 8
+TAB_SLOTS = 4 * 8 * 8
+
+
+class _Args(ctypes.Structure):
+    """csrc/sumfact_apply.cu's Args, field for field."""
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "t", "y", "Gt", "Jr", "wr", "stream")] + [
+        ("E", ctypes.c_int64), ("dim", ctypes.c_int), ("ngl", ctypes.c_int),
+        ("f64", ctypes.c_int), ("pad", ctypes.c_int),
+        ("alpha_w", ctypes.c_double), ("alpha_d", ctypes.c_double),
+        ("tab", ctypes.c_double * TAB_SLOTS)]
+
+
+def kernel_tables(ngl: int) -> np.ndarray:
+    """The kernel's 1D tables as its arguments carry them: Hf, Df, Hr, Dr
+    of `one_d_tables`, each row-major, one after the other (float64)."""
+    return np.concatenate([a.ravel() for a in one_d_tables(ngl)])
+
+
+def check_input(sf: SumFactK, t: torch.Tensor) -> None:
+    """Raise unless t is a contiguous (E, dim·ngl^dim) tensor of sf's dtype
+    on sf's device."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError("apply_sumfact_k takes a torch tensor")
+    if t.dtype != sf.Gt.dtype:
+        raise TypeError(f"apply_sumfact_k: t is {t.dtype}, the SumFactK "
+                        f"{sf.Gt.dtype}")
+    if t.device != sf.Gt.device:
+        raise ValueError(f"apply_sumfact_k: t on {t.device}, the SumFactK "
+                         f"on {sf.Gt.device}")
+    shape = (sf.Gt.shape[0], sf.dim * sf.ngl ** sf.dim)
+    if tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(f"apply_sumfact_k: t must be a contiguous {shape} "
+                         f"tensor, got {tuple(t.shape)}"
+                         f"{'' if t.is_contiguous() else ' (strided)'}")
+
+
+def _bind(sf: SumFactK) -> _Args:
+    """The launch arguments of sf's product (checked once, cached on sf)."""
+    from pynama_tpu_torch.ops._build import load_library
+    if sf.dim not in KERNEL_DIMS or sf.ngl not in KERNEL_NGL:
+        raise ValueError(f"the sumfact kernel takes dim {KERNEL_DIMS} and "
+                         f"ngl 2-8, not dim {sf.dim} ngl {sf.ngl}")
+    if sf.Gt.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the sumfact kernel takes float32 or float64, not "
+                        f"{sf.Gt.dtype}")
+    for name in ("Gt", "Jrt", "wr"):
+        a = getattr(sf, name)
+        if a.dtype != sf.Gt.dtype or a.device != sf.Gt.device \
+                or not a.is_contiguous():
+            raise ValueError(f"SumFactK.{name}: a contiguous "
+                             f"{sf.Gt.dtype} tensor on {sf.Gt.device}")
+    tab = kernel_tables(sf.ngl)
+    a = _Args(Gt=sf.Gt.data_ptr(), Jr=sf.Jrt.data_ptr(),
+              wr=sf.wr.data_ptr(), E=sf.Gt.shape[0], dim=sf.dim,
+              ngl=sf.ngl, f64=int(sf.Gt.dtype == torch.float64),
+              alpha_w=sf.alpha_w, alpha_d=sf.alpha_d)
+    a.tab[:tab.size] = tab.tolist()
+    lib = load_library()
+    sf._launch.update(args=a, addr=ctypes.addressof(a),
+                      fn=lib.pn_sumfact_apply,
+                      error=lib.pn_cuda_error_string)
+    return a
+
+
+def apply_sumfact_k(sf: SumFactK, t: torch.Tensor) -> torch.Tensor:
+    """y = t @ K_eᵀ per element, (E, nnode·dim) -> (E, nnode·dim): the
+    un-assembled element product (the caller DSSes, as with the dense
+    path). On a CUDA tensor one launch of csrc/sumfact_apply.cu on the
+    current stream, else `apply_sumfact_k_ref`; t must be a contiguous
+    (E, dim·ngl^dim) tensor of sf's dtype and device."""
+    check_input(sf, t)
+    if t.device.type != "cuda":
+        return apply_sumfact_k_ref(sf, t)
+    k = sf._launch
+    a = k["args"] if k else _bind(sf)
+    y = torch.empty_like(t)
+    a.t, a.y = t.data_ptr(), y.data_ptr()
+    a.stream = torch.cuda.current_stream(t.device).cuda_stream
+    rc = k["fn"](k["addr"])
+    if rc != 0:
+        raise RuntimeError(f"sumfact kernel launch failed: CUDA error {rc} "
+                           f"({k['error'](rc).decode()})")
+    apply_sumfact_k.launches += 1
+    return y
+
+
+#: kernel launches of this process (CPU calls do not count)
+apply_sumfact_k.launches = 0
