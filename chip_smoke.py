@@ -279,12 +279,13 @@ exits non-zero without the final result line:
             flagship's local velocity length (2,654,208 values), f32 and
             f64: one iteration's steps, Jacobi (cg_pap, cg_xr, cg_p) and
             with an eager preconditioner (cg_pap, cg_xr, cg_rz, cg_p),
-            against their plain versions on copies (relative error <= 1e-5
-            f32, 1e-12 f64; the int64 scalars bitwise), their launch
-            counters; each kernel's device µs beside its HBM bound, the
-            timed calls rotating among EPILOGUE_RING states so that they
-            read HBM and not the 50 MB L2; and the device µs of the eager
-            loop's update of one Jacobi iteration, rotated the same way
+            against the plain steps on the same values on the CPU
+            (relative error <= 1e-5 f32, 1e-12 f64; the int64 scalars
+            bitwise), their launch counters; each kernel's device µs beside
+            its HBM bound, the timed calls rotating among EPILOGUE_RING
+            states so that they read HBM and not the 50 MB L2; and the
+            device µs of one Jacobi iteration's update as eager PyTorch
+            launches, rotated the same way
 
 The last three lines are the card's name and power limit (nvidia-smi), the
 record of the four kernels as JSON (K1's also with `launches_by_path`: its
@@ -4003,8 +4004,9 @@ def phase_schwarz(torch, dev):
 
 
 def _cg_state(torch, dev, dtype, n, jacobi, seed):
-    """A CGState of the fused CG epilogue on random vectors of length n
-    (run and live true, k = 3) and a maker of more such vectors."""
+    """A CGState of a masked system on random vectors of length n on dev
+    (run and live true, k = 3; the same values on every device for a seed)
+    and a maker of more such vectors."""
     from pynama_tpu_torch.ops import cg_epilogue as E
     g = torch.Generator(device="cpu").manual_seed(seed)
 
@@ -4013,10 +4015,10 @@ def _cg_state(torch, dev, dtype, n, jacobi, seed):
                 + 0.5).to(dtype).to(dev)
 
     free = (torch.rand(n, generator=g) > 0.05).to(dtype).to(dev)
-    ep = E.Epilogue(apply=None, free=free, inv_mult=vec(),
-                    dmask=vec() if jacobi else None)
+    system = E.MaskedSystem(apply=None, free=free, inv_mult=vec(),
+                            precond=vec() if jacobi else (lambda v: v))
     s = lambda x: torch.tensor(x, dtype=dtype, device=dev)
-    st = E.CGState(ep, vec(), vec(), vec(), s(2.5), s(3.0), s(1e-30),
+    st = E.CGState(system, vec(), vec(), vec(), s(2.5), s(3.0), s(1e-30),
                    torch.tensor(True, device=dev),
                    torch.tensor(True, device=dev),
                    torch.tensor(3, device=dev), 1000)
@@ -4035,9 +4037,8 @@ def _rotating(ring, fn):
 
 
 def _eager_update(torch, st, y, c):
-    """The eager loop's update of one Jacobi iteration on a CGState's
-    vectors, Ap = free * y included (pcg.update's launches), for the
-    yardstick; c holds the state's run flag and the constants one and zero,
+    """One Jacobi iteration's update as eager PyTorch launches on a
+    CGState's vectors, Ap = free * y included, for the yardstick; c holds the state's run flag and the constants one and zero,
     made once as pcg's prologue makes them."""
     inv, free, dmask, run = st.inv, st.free, st.dmask, c["run"]
     one, zero = c["one"], c["zero"]
@@ -4082,8 +4083,8 @@ def phase_cg_epilogue(torch, dev):
     """The fused CG epilogue (ops/cg_epilogue.py) at the flagship's local
     velocity length (24^3 ngl=4: 2,654,208 values), f32 and f64: one
     iteration's steps, Jacobi (cg_pap, cg_xr, cg_p) and with an eager
-    preconditioner (cg_pap, cg_xr, cg_rz, cg_p), against their plain
-    versions run on copies; the launch counters; each kernel's device µs
+    preconditioner (cg_pap, cg_xr, cg_rz, cg_p), against the plain steps
+    on the same values on the CPU; the launch counters; each kernel's device µs
     beside its HBM bound, and the eager update's device µs, each timed on
     calls that rotate among EPILOGUE_RING states. Returns the record."""
     from pynama_tpu_torch.ops import cg_epilogue as E
@@ -4104,25 +4105,20 @@ def phase_cg_epilogue(torch, dev):
         eb = torch.empty((), dtype=dtype).element_size()
         for jac in (True, False):
             st, vec = _cg_state(torch, dev, dtype, n, jac, 11)
-            ref = {k: getattr(st, k).clone() for k in ("x", "r", "p", "sf",
-                                                         "si")}
+            ref, vec_ref = _cg_state(torch, "cpu", dtype, n, jac, 11)
             y, z = vec(), vec()
-            y_ref = y.clone()
+            y_ref, z_ref = vec_ref(), vec_ref()
             before = {k: f.launches for k, f in steps.items()}
             ap = E.cg_pap(st, y)
             E.cg_xr(st, ap)
             if not jac:
                 E.cg_rz(st, z)
             E.cg_p(st, None if jac else z)
-            ap_r = E.cg_pap_ref(y_ref, ref["p"], st.free, st.inv,
-                                ref["sf"], ref["si"])
-            E.cg_xr_ref(ref["x"], ref["r"], ref["p"], ap_r, st.inv,
-                        ref["sf"], ref["si"], st.maxiter, st.dmask)
+            ap_r = E.cg_pap(ref, y_ref)
+            E.cg_xr(ref, ap_r)
             if not jac:
-                E.cg_rz_ref(ref["r"], z, st.inv, ref["sf"], ref["si"],
-                            st.maxiter)
-            E.cg_p_ref(ref["p"], ref["r"] / st.dmask if jac else z,
-                       ref["sf"])
+                E.cg_rz(ref, z_ref)
+            E.cg_p(ref, None if jac else z_ref)
             torch.cuda.synchronize()
             launched = {k: f.launches - before[k] for k, f in steps.items()}
             want = {"cg_pap": 1, "cg_xr": 1, "cg_rz": 0 if jac else 1,
@@ -4130,14 +4126,17 @@ def phase_cg_epilogue(torch, dev):
             check(launched == want, f"cg_epilogue launches {launched}, "
                   f"want {want}")
             errs = {k: _rel(getattr(st, k).double().cpu().numpy(),
-                            ref[k].double().cpu().numpy())
-                    for k in ("x", "r", "p", "sf")}
+                            getattr(ref, k).double().numpy())
+                    for k in ("x", "r", "p")}
+            errs["sf"] = _rel(st.sf.double().cpu().numpy(),
+                              torch.stack(ref.sf).double().numpy())
             errs["ap"] = _rel(ap.double().cpu().numpy(),
-                              ap_r.double().cpu().numpy())
-            check(max(errs.values()) <= tol and torch.equal(st.si, ref["si"]),
+                              ap_r.double().numpy())
+            si_ref = [int(v) for v in ref.si]
+            check(max(errs.values()) <= tol and st.si.tolist() == si_ref,
                   f"cg_epilogue {dn} jacobi={jac}: {errs}, si "
-                  f"{st.si.tolist()} vs {ref['si'].tolist()}")
-            del st, ref, y, z, y_ref, ap, ap_r
+                  f"{st.si.tolist()} vs {si_ref}")
+            del st, ref, y, z, y_ref, z_ref, ap, ap_r
             ring = []
             for i in range(EPILOGUE_RING):
                 s_i, v_i = _cg_state(torch, dev, dtype, n, jac, 20 + i)
@@ -4150,7 +4149,7 @@ def phase_cg_epilogue(torch, dev):
             out[f"{dn}_{'jacobi' if jac else 'eager_pc'}"] = dict(
                 rel_err=errs, launches=launched, kernels=times)
             if jac:
-                # the eager loop's update of one Jacobi iteration
+                # one Jacobi iteration's update as eager launches
                 eager = [(s_i, y_i, dict(
                     run=s_i.si[1] != 0, one=s_i.sf.new_ones(()),
                     zero=s_i.sf.new_zeros(()))) for s_i, y_i, _ in ring]

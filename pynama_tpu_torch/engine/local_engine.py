@@ -73,7 +73,7 @@ import torch
 from pynama_tpu_torch.functions import get_function_lib
 from pynama_tpu_torch.ops import local as L
 from pynama_tpu_torch.ops import sumfact as S
-from pynama_tpu_torch.ops.cg_epilogue import Epilogue
+from pynama_tpu_torch.ops.cg_epilogue import MaskedSystem
 from pynama_tpu_torch.ops.fused import dss_pass, fused_apply
 from pynama_tpu_torch.solver.cg import pcg
 from pynama_tpu_torch.solver.fdm import (FDMOps, SlabFDM, build_fdm,
@@ -573,18 +573,6 @@ def _dot_v(ops: EngineOps):
     return dot
 
 
-def _dots_v(ops: EngineOps):
-    """pcg's `dots`: several `_dot_v` values, one psum for all of them
-    when sharded."""
-    inv = ops.lay_v.inv_mult
-
-    def dots(pairs):
-        s = [(a * b * inv).sum() for a, b in pairs]
-        return list(ops.comm.psum(torch.stack(s))) if _sharded(ops) else s
-
-    return dots
-
-
 def _dss(ops: EngineOps, lay, t):
     """Plain DSS dispatch: on an unstructured mesh the gather DSS, a
     `dss.gather` span with attr ncomp; the overlapped variant when sharded
@@ -701,12 +689,13 @@ def preconditioner(ops: EngineOps, free, fdm=None) -> Precond:
     SlabFDM) is given, Schwarz when ops.pc == "schwarz", else Jacobi.
 
     CONTRACT: z = M_inv(r) keeps exact zeros on the constrained dofs
-    (z_con == 0 whenever r_con == 0). _masked_solve's A0/A split rests on
-    it: the in-loop operator drops the input mask and the `con*v`
-    passthrough because every loop vector stays exactly zero there. The
-    same holds of M_inv's own input mask and `con*r`, so CG takes
-    `Precond.loop`, M_inv without them: FDM and Schwarz mask their output
-    with `free`, and the Jacobi divide maps zeros to zeros."""
+    (z_con == 0 whenever r_con == 0). The CG loop of a MaskedSystem
+    (ops/cg_epilogue.py) rests on it: its operator drops the input mask
+    and the `con*v` passthrough because every loop vector stays exactly
+    zero there. The same holds of M_inv's own input mask and `con*r`, so
+    CG takes `Precond.loop`, M_inv without them: FDM and Schwarz mask
+    their output with `free`, and the Jacobi divide maps zeros to
+    zeros."""
     con = 1.0 - free
     if ops.pc == "fdm" and isinstance(fdm, SlabFDM):
         def loop(r):
@@ -732,18 +721,6 @@ def preconditioner(ops: EngineOps, free, fdm=None) -> Precond:
     return Precond(lambda r: r / dmask, free, None, dmask)
 
 
-def _cg_epilogue(ops: EngineOps, free, pc: Precond):
-    """pcg's fused epilogue for the masked system, or None on a sharded
-    engine, whose dot products need a psum between the partial sums and
-    the scalars. Its operator is the loop's `A` without the output mask;
-    its preconditioner Jacobi's divisor, folded into the kernels, or else
-    pcg's eager M_inv."""
-    if _sharded(ops):
-        return None
-    return Epilogue(apply=lambda v: apply_K(ops, v), free=free,
-                    inv_mult=ops.lay_v.inv_mult, dmask=pc.dmask)
-
-
 def _masked_solve(ops: EngineOps, free, vort, vel, stats=None, fdm=None,
                   stage="main"):
     """Solve the Dirichlet-condensed KLE system on the free subspace with
@@ -755,43 +732,31 @@ def _masked_solve(ops: EngineOps, free, vort, vel, stats=None, fdm=None,
     applies the preconditioner once more than the count. The solve is a
     `kle.solve` span with attrs method, stage ("fs" or "main"),
     loop_applies (the count above, a host int) and iters (a device
-    tensor); a CG solve also with epilogue: "fused" where pcg runs its
-    loop through ops/cg_epilogue.py (`_cg_epilogue`), else "eager"."""
+    tensor); a CG solve also with epilogue, as pcg reports it
+    (CGResult.epilogue): "fused" on an unsharded engine, "eager" on a
+    sharded one."""
     with span("kle.solve") as sp:
         sp.attrs["method"], sp.attrs["stage"] = ops.krylov, stage
-        con = 1.0 - free
-        vc = con * vel
+        pc = preconditioner(ops, free, fdm)
+        system = MaskedSystem(
+            apply=lambda v: apply_K(ops, v), free=free,
+            inv_mult=ops.lay_v.inv_mult,
+            precond=pc.loop if pc.dmask is None else pc.dmask,
+            reduce=ops.comm.psum if _sharded(ops) else None)
+        vc = system.con * vel
         b = free * (_apply_mat(ops, ops.lay_v, vort, ops.RwT)
                     - apply_K(ops, vc)) + vc
-
-        def A0(v):
-            """Full Dirichlet-condensed operator — initial residual only."""
-            return free * apply_K(ops, free * v) + con * v
-
-        def A(v):
-            """In-loop operator: every CG loop vector is exactly zero on the
-            constrained dofs (r0_con = b_con - A0(x0)_con = vc - vc = 0, and
-            Ap/z/p inherit the zeros; see `preconditioner`'s contract), so
-            `free*v == v` bitwise and `con*v` vanishes; dropping them saves
-            two full passes per iteration with a bitwise-identical
-            trajectory."""
-            return free * apply_K(ops, v)
-
-        pc = preconditioner(ops, free, fdm)
         if ops.krylov == "gmres":
-            res = gmres(A0, b, free * vel + vc, M_inv=pc,
+            # the full operator: GMRES's vectors are not zero on the
+            # constrained dofs
+            res = gmres(system.A0, b, free * vel + vc, M_inv=pc,
                         rtol=ops.cg_rtol, atol=ops.cg_atol,
                         maxiter=ops.cg_maxiter, dot=_dot_v(ops))
             counted = res.applies
         else:
-            ep = _cg_epilogue(ops, free, pc)
-            sp.attrs["epilogue"] = "eager" if ep is None else "fused"
-            # r0 is zero on the constrained dofs too (A's docstring): the
-            # prologue takes the loop's form of M_inv as well
-            res = pcg(A, b, free * vel + vc, M_inv=pc.loop,
-                      rtol=ops.cg_rtol, atol=ops.cg_atol,
-                      maxiter=ops.cg_maxiter, dot=_dot_v(ops), A0=A0,
-                      dots=_dots_v(ops), epilogue=ep)
+            res = pcg(system, b, free * vel + vc, rtol=ops.cg_rtol,
+                      atol=ops.cg_atol, maxiter=ops.cg_maxiter)
+            sp.attrs["epilogue"] = res.epilogue
             counted = res.loop_applies
         sp.attrs["loop_applies"], sp.attrs["iters"] = counted, res.iters
     if stats is not None:
@@ -820,7 +785,10 @@ def solve_kle_local(ops: EngineOps, vort, vel, time, stats=None):
 
 
 def rhs_local(ops: EngineOps, time, vort, vel, stats=None):
-    """d(vort)/dt in local layout (evalRHS), an `rhs.eval` span."""
+    """d(vort)/dt in local layout (evalRHS), an `rhs.eval` span. The
+    benchmark wraps this function under the module-level names
+    `engine.local_engine.rhs_local` and `cases.problem.rhs_local`, so
+    callers there call it through those names."""
     with span("rhs.eval"):
         _, vel = solve_kle_local(ops, vort, vel, time, stats)
         vtv = vtensv(ops, vel)

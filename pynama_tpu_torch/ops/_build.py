@@ -71,8 +71,9 @@ _DSS = [_VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _VP]
 # ngl, ncomp, dim, ne0, ne1, ne2, elem_bytes, chunk, out (int[5]); launches
 # nothing
 _DSS_PLAN = [_I32] * 8 + [ctypes.POINTER(_I32)]
-# the address of one solve's launch arguments (ops/cg_epilogue.py _Args)
-_CG = [_VP]
+# the address of a kernel's argument block (ArgBlock; ops/cg_epilogue.py and
+# ops/sumfact.py _Args)
+_BLOCK = [_VP]
 SIGNATURES = {
     "pn_fused_apply_f32": _FUSED, "pn_fused_apply_f64": _FUSED,
     "pn_plainmm_f32": _PLAINMM, "pn_plainmm_f64": _PLAINMM,
@@ -81,9 +82,9 @@ SIGNATURES = {
     "pn_fused3x_f32": _FUSED3X, "pn_gemm3x_f32": _GEMM3X,
     "pn_gemm3x_plan": _GEMM3X_PLAN,
     "pn_dss_f32": _DSS, "pn_dss_f64": _DSS, "pn_dss_plan": _DSS_PLAN,
-    "pn_cg_pap": _CG, "pn_cg_xr": _CG, "pn_cg_rz": _CG, "pn_cg_p": _CG,
-    # the address of one product's launch arguments (ops/sumfact.py _Args)
-    "pn_sumfact_apply": _CG,
+    "pn_cg_pap": _BLOCK, "pn_cg_xr": _BLOCK, "pn_cg_rz": _BLOCK,
+    "pn_cg_p": _BLOCK,
+    "pn_sumfact_apply": _BLOCK,
 }
 
 
@@ -172,9 +173,35 @@ def launch(symbol: str, device, *args) -> None:
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, symbol)(*args, stream)
     if rc != 0:
-        raise RuntimeError(
-            f"{symbol} kernel launch failed: CUDA error {rc} "
-            f"({lib.pn_cuda_error_string(rc).decode()})")
+        _raise(lib, symbol, rc)
+
+
+class ArgBlock:
+    """A kernel's argument block, bound once: `args` is a ctypes.Structure
+    that mirrors the kernel's Args field for field and has a `stream`
+    field, into which the block writes PyTorch's current stream on
+    `device`; `symbols` are the library's entry points that take the
+    block's address. A launch is one ctypes call. A caller that launches on
+    another stream later writes it into `args.stream` first."""
+
+    def __init__(self, args: ctypes.Structure, device, *symbols: str):
+        import torch
+        self._lib = load_library()
+        self.args = args
+        args.stream = torch.cuda.current_stream(device).cuda_stream
+        self._addr = ctypes.addressof(args)
+        self._fns = {s: getattr(self._lib, s) for s in symbols}
+
+    def launch(self, symbol: str) -> None:
+        """One launch of `symbol` with the block; raise as `launch`."""
+        rc = self._fns[symbol](self._addr)
+        if rc != 0:
+            _raise(self._lib, symbol, rc)
+
+
+def _raise(lib, symbol: str, rc: int):
+    raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {rc} "
+                       f"({lib.pn_cuda_error_string(rc).decode()})")
 
 
 def load_library() -> ctypes.CDLL:

@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
@@ -75,9 +76,6 @@ class SumFactK:
     ngl: int
     alpha_w: float = ALPHA_W
     alpha_d: float = ALPHA_D
-    #: the kernel's launch arguments, bound at the first CUDA call
-    _launch: dict = dataclasses.field(default_factory=dict, init=False,
-                                      repr=False, compare=False)
 
     @property
     def nqf(self) -> int:
@@ -311,9 +309,14 @@ def check_input(sf: SumFactK, t: torch.Tensor) -> None:
                          f"{'' if t.is_contiguous() else ' (strided)'}")
 
 
-def _bind(sf: SumFactK) -> _Args:
-    """The launch arguments of sf's product (checked once, cached on sf)."""
-    from pynama_tpu_torch.ops._build import load_library
+#: the kernel's argument block of each SumFactK that has run on a card, by
+#: id, bound at its first CUDA call and dropped when it is collected
+_BLOCKS = {}
+
+
+def _bind(sf: SumFactK):
+    """The argument block of sf's product (checked once)."""
+    from pynama_tpu_torch.ops._build import ArgBlock
     if sf.dim not in KERNEL_DIMS or sf.ngl not in KERNEL_NGL:
         raise ValueError(f"the sumfact kernel takes dim {KERNEL_DIMS} and "
                          f"ngl 2-8, not dim {sf.dim} ngl {sf.ngl}")
@@ -332,11 +335,9 @@ def _bind(sf: SumFactK) -> _Args:
               ngl=sf.ngl, f64=int(sf.Gt.dtype == torch.float64),
               alpha_w=sf.alpha_w, alpha_d=sf.alpha_d)
     a.tab[:tab.size] = tab.tolist()
-    lib = load_library()
-    sf._launch.update(args=a, addr=ctypes.addressof(a),
-                      fn=lib.pn_sumfact_apply,
-                      error=lib.pn_cuda_error_string)
-    return a
+    block = _BLOCKS[id(sf)] = ArgBlock(a, sf.Gt.device, "pn_sumfact_apply")
+    weakref.finalize(sf, _BLOCKS.pop, id(sf), None)
+    return block
 
 
 def apply_sumfact_k(sf: SumFactK, t: torch.Tensor) -> torch.Tensor:
@@ -348,15 +349,13 @@ def apply_sumfact_k(sf: SumFactK, t: torch.Tensor) -> torch.Tensor:
     check_input(sf, t)
     if t.device.type != "cuda":
         return apply_sumfact_k_ref(sf, t)
-    k = sf._launch
-    a = k["args"] if k else _bind(sf)
+    block = _BLOCKS.get(id(sf)) or _bind(sf)
     y = torch.empty_like(t)
+    a = block.args
     a.t, a.y = t.data_ptr(), y.data_ptr()
+    # this call's stream: a CUDA graph capture runs on a stream of its own
     a.stream = torch.cuda.current_stream(t.device).cuda_stream
-    rc = k["fn"](k["addr"])
-    if rc != 0:
-        raise RuntimeError(f"sumfact kernel launch failed: CUDA error {rc} "
-                           f"({k['error'](rc).decode()})")
+    block.launch("pn_sumfact_apply")
     apply_sumfact_k.launches += 1
     return y
 

@@ -34,6 +34,8 @@ import numpy as np
 import scipy.linalg
 import torch
 
+from pynama_tpu_torch.solver.cg import vdot
+
 
 class GMRESResult(NamedTuple):
     x: torch.Tensor
@@ -43,10 +45,6 @@ class GMRESResult(NamedTuple):
     residual: float
     #: operator applications made, every one counted (host int)
     applies: int
-
-
-def _vdot(a, b):
-    return (a * b).sum()
 
 
 def gmres(A: Callable, b: torch.Tensor, x0: torch.Tensor,
@@ -63,7 +61,7 @@ def gmres(A: Callable, b: torch.Tensor, x0: torch.Tensor,
     if M_inv is None:
         M_inv = lambda r: r
     if dot is None:
-        dot = _vdot
+        dot = vdot
 
     m = int(restart)
     shape = b.shape

@@ -91,8 +91,9 @@ def _masked_solve(K_op: ElementOp, Rw_op: ElementOp, sys: KLESystem,
     application counted, as in GMRESResult). The solve is a `kle.solve`
     span with attrs method and stage ("fs" or "main"), and for an
     iterative solve loop_applies (the count above, a host int) and iters
-    (a device tensor); a cg solve also epilogue "eager" (pcg's eager loop,
-    never the fused one of the engine)."""
+    (a device tensor); a cg solve also epilogue, as pcg reports it
+    (CGResult.epilogue): "eager", since the system is given generically
+    (plain steps on every device)."""
     with span("kle.solve") as sp:
         sp.attrs["method"], sp.attrs["stage"] = sys.method, stage
         free = sys.free
@@ -117,7 +118,7 @@ def _masked_solve(K_op: ElementOp, Rw_op: ElementOp, sys: KLESystem,
 
         def A(v):
             """In-loop operator: CG loop vectors are exactly zero on the
-            constrained dofs (the invariant of local_engine._masked_solve),
+            constrained dofs (ops/cg_epilogue.py MaskedSystem),
             so the input mask and `con*v` passthrough are dropped, with a
             bitwise-identical trajectory."""
             return free * apply_op(K_op, v)
@@ -133,9 +134,9 @@ def _masked_solve(K_op: ElementOp, Rw_op: ElementOp, sys: KLESystem,
                         atol=sys.cg_atol, maxiter=sys.cg_maxiter)
             counted = res.applies
         else:
-            sp.attrs["epilogue"] = "eager"
             res = pcg(A, b, x0, M_inv=M_inv, rtol=sys.cg_rtol,
                       atol=sys.cg_atol, maxiter=sys.cg_maxiter, A0=A0)
+            sp.attrs["epilogue"] = res.epilogue
             counted = res.loop_applies
         sp.attrs["loop_applies"], sp.attrs["iters"] = counted, res.iters
     if stats is not None:

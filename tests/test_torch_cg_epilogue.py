@@ -1,20 +1,22 @@
-"""The fused CG epilogue (ops/cg_epilogue.py, csrc/cg_epilogue.cu) and where
-pcg takes it.
+"""pcg's one loop over a CGState (solver/cg.py, ops/cg_epilogue.py,
+csrc/cg_epilogue.cu) and which route each caller takes.
 
-On the CPU the epilogue's plain versions run the step functions pcg's
-eager loop is written in, so a fused solve gives bitwise the eager loop's
-x, iters, residual and loop_applies: on 2D and 3D box meshes under every preconditioner, on a
+On the CPU every route runs the plain steps. The plain steps agree with
+the JAX package's pcg in f64, and a system given as a MaskedSystem gives
+bitwise the x, iters, residual and loop_applies of the same system given
+generically: on 2D and 3D box meshes under every preconditioner, on a
 dense system stopped early inside a check block, at the maxiter cap and
-with b == 0. The engine takes the epilogue on an unsharded engine only;
-the sharded engine, the global layout (solver/kle.py) and the IBM
-correction CGs keep the eager loop. `cg.fused_share` reads the engine's
-`kle.solve` attribute.
+with b == 0. The route rule: the unsharded engine's masked system is
+"fused" (the kernels on a card); the sharded engine (its dots need a psum),
+the global layout (solver/kle.py) and the IBM correction CGs are "eager"
+(plain steps everywhere). `cg.fused_share` reads the engine's `kle.solve`
+attribute, which pcg reports.
 
-Tests marked `card` compare the kernels with their plain versions and the
-fused loop with the eager one on an NVIDIA card, and skip without one. The
-file imports no JAX; on the card run them without the JAX-loading
-conftest: `python -m pytest --noconftest -p no:cacheprovider -m card
-tests/test_torch_cg_epilogue.py`.
+Tests marked `card` compare the kernels with the plain steps and the
+kernels' solve with the plain steps' on an NVIDIA card, and skip without
+one. The file imports no JAX at module level; on the card run them without
+the JAX-loading conftest: `python -m pytest --noconftest -p no:cacheprovider
+-m card tests/test_torch_cg_epilogue.py`.
 """
 import dataclasses
 import os
@@ -86,21 +88,32 @@ def state(p, seed=7):
             p.to_local(vel.to(dt).to(p.device)))
 
 
+def generic(system):
+    """A MaskedSystem on one rank written out as pcg's generic form takes
+    it: A, A0, M_inv and dot."""
+    free, inv, d = system.free, system.inv_mult, system.dmask
+    con = 1.0 - free
+    return dict(A=lambda v: free * system.apply(v),
+                A0=lambda v: free * system.apply(free * v) + con * v,
+                M_inv=system.precond if d is None else (lambda r: r / d),
+                dot=lambda a, c: (a * c * inv).sum())
+
+
 class Spy:
     """Stands in for local_engine's pcg: runs the solve as the engine asked
-    (fused where it passed an epilogue) and, where it did, again on the
-    eager loop (and `again` more times fused); keeps every result."""
+    (`again` more times) and, on one rank, again with the same system given
+    generically; keeps every result."""
 
     def __init__(self, again=0):
         self.calls, self.again = [], again
 
-    def __call__(self, *args, **kw):
-        res = CG.pcg(*args, **kw)
-        ep = kw.get("epilogue")
-        row = {"epilogue": ep, "res": res, "more": [], "args": (args, kw)}
-        if ep is not None:
-            row["eager"] = CG.pcg(*args, **{**kw, "epilogue": None})
-            row["more"] = [CG.pcg(*args, **kw) for _ in range(self.again)]
+    def __call__(self, system, b, x0, **kw):
+        res = CG.pcg(system, b, x0, **kw)
+        row = {"system": system, "res": res, "args": (b, x0, kw),
+               "more": [CG.pcg(system, b, x0, **kw)
+                        for _ in range(self.again)]}
+        if system.reduce is None:
+            row["generic"] = CG.pcg(b=b, x0=x0, **generic(system), **kw)
         self.calls.append(row)
         return res
 
@@ -112,24 +125,27 @@ def same(a: CG.CGResult, b: CG.CGResult) -> bool:
             and a.loop_applies == b.loop_applies)
 
 
-# ------------------------------------------------- CPU: bitwise the eager
+# ------------------------------ CPU: a masked system is the generic one
 @pytest.mark.parametrize("pc", ["jacobi", "fdm", "schwarz"])
 @pytest.mark.parametrize("dim,nelem", [(2, 3), (3, 2)])
 def test_engine_solves_bitwise_eager(dim, nelem, pc, monkeypatch):
-    """Both KLE stages of one rhs: the fused plain-version loop gives the
-    eager loop's fields bit for bit."""
+    """Both KLE stages of one rhs: the engine's MaskedSystem ("fused")
+    gives the fields of the same system given generically ("eager") bit
+    for bit."""
     p = problem(dim, nelem, 3, pc=pc)
     spy = Spy()
     monkeypatch.setattr(LE, "pcg", spy)
     LE.rhs_local(p.engine_ops, 0.0, *state(p))
     assert len(spy.calls) == 2
     for row in spy.calls:
-        ep = row["epilogue"]
-        assert isinstance(ep, E.Epilogue)
-        assert (ep.dmask is not None) == (pc == "jacobi")
-        M_inv = row["args"][1]["M_inv"]        # Precond's loop form
-        assert not isinstance(M_inv, LE.Precond) and callable(M_inv)
-        assert same(row["res"], row["eager"])
+        system = row["system"]
+        assert isinstance(system, E.MaskedSystem) and system.reduce is None
+        assert (system.dmask is not None) == (pc == "jacobi")
+        if pc != "jacobi":                  # Precond's loop form
+            assert not isinstance(system.precond, LE.Precond)
+        assert (row["res"].epilogue, row["generic"].epilogue) \
+            == ("fused", "eager")
+        assert same(row["res"], row["generic"])
         assert 0 < int(row["res"].iters) <= row["res"].loop_applies
 
 
@@ -157,12 +173,13 @@ def test_precond_loop_form_is_m_inv_on_loop_vectors(dim, nelem, pc):
             assert torch.equal(z, r / P.dmask)
 
 
-def dense_system(n=60, n_con=7, seed=3):
-    """A masked SPD system as the engine builds one, on flat vectors: (A,
-    A0, b, x0, M_inv, dot, dots, Epilogue)."""
+def dense_system(n=60, n_con=7, seed=3, cond=1e4):
+    """A masked SPD system as the engine builds one, on flat vectors: b,
+    x0, the MaskedSystem (Jacobi) and its generic form (A, A0, M_inv,
+    dot), and the arrays K, free, inv."""
     rng = np.random.default_rng(seed)
     Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
-    K = torch.tensor((Q * np.geomspace(1.0, 1e4, n)) @ Q.T)
+    K = torch.tensor((Q * np.geomspace(1.0, cond, n)) @ Q.T)
     free = torch.ones(n, dtype=torch.float64)
     free[torch.tensor(rng.choice(n, size=n_con, replace=False))] = 0.0
     con = 1.0 - free
@@ -170,29 +187,24 @@ def dense_system(n=60, n_con=7, seed=3):
     rhs = torch.tensor(rng.standard_normal(n))
     inv = torch.full((n,), 0.5, dtype=torch.float64)   # keeps A symmetric
     vc = con * vel
-    b = free * (rhs - K @ vc) + vc
-    dmask = free * torch.diagonal(K) + con
+    system = E.MaskedSystem(apply=lambda v: K @ v, free=free, inv_mult=inv,
+                            precond=free * torch.diagonal(K) + con)
+    return dict(b=free * (rhs - K @ vc) + vc, x0=free * vel + vc,
+                system=system, K=K, free=free, inv=inv, **generic(system))
 
-    def M_inv(r):
-        return r / dmask
 
-    def dot(a, c):
-        return (a * c * inv).sum()
-
-    ep = E.Epilogue(apply=lambda v: K @ v, free=free, inv_mult=inv,
-                    dmask=dmask)
-    return dict(A=lambda v: free * (K @ v),
-                A0=lambda v: free * (K @ (free * v)) + con * v, b=b,
-                x0=free * vel + vc, M_inv=M_inv, dot=dot,
-                dots=lambda pairs: [dot(a, c) for a, c in pairs], ep=ep)
+def with_precond(s, M_inv):
+    """s with the preconditioner M_inv (a callable) in both forms."""
+    return {**s, "M_inv": M_inv,
+            "system": dataclasses.replace(s["system"], precond=M_inv)}
 
 
 def solve_both(s, **kw):
-    args = dict(M_inv=s["M_inv"], dot=s["dot"], A0=s["A0"], dots=s["dots"],
-                **kw)
-    eager = CG.pcg(s["A"], s["b"], s["x0"], **args)
-    fused = CG.pcg(s["A"], s["b"], s["x0"], epilogue=s["ep"], **args)
-    return fused, eager
+    """(masked, generic): pcg of s's system in its two forms."""
+    generic_ = CG.pcg(s["A"], s["b"], s["x0"], M_inv=s["M_inv"],
+                      dot=s["dot"], A0=s["A0"], **kw)
+    masked = CG.pcg(s["system"], s["b"], s["x0"], **kw)
+    return masked, generic_
 
 
 @pytest.mark.parametrize("rtol,maxiter,want", [
@@ -205,45 +217,78 @@ def test_dense_loop_bitwise_eager(rtol, maxiter, want):
     if want == "zero_b":
         s["b"] = torch.zeros_like(s["b"])
     x0 = s["x0"].clone()
-    fused, eager = solve_both(s, rtol=rtol, maxiter=maxiter)
-    assert same(fused, eager)
+    masked, generic_ = solve_both(s, rtol=rtol, maxiter=maxiter)
+    assert same(masked, generic_)
     assert torch.equal(s["x0"], x0)          # x0 is not written
-    it, n = int(fused.iters), fused.loop_applies
+    it, n = int(masked.iters), masked.loop_applies
     if want == "early":
-        assert 0 < it < n and it % 8 != 0
+        assert 0 < it < n and it % CG.CHECK_EVERY != 0
     elif want == "cap":
         assert it == n == maxiter
     else:
-        assert it == n == 0 and not fused.x.any()
+        assert it == n == 0 and not masked.x.any()
 
 
 def test_eager_preconditioner_route_bitwise():
-    """With M_inv eager (no dmask) the loop takes cg_rz: still bitwise."""
+    """With a callable preconditioner (no dmask) the loop takes cg_rz:
+    still bitwise."""
     s = dense_system(seed=4)
-    s["ep"] = s["ep"]._replace(dmask=None)
-    fused, eager = solve_both(s, rtol=1e-10, maxiter=500)
-    assert same(fused, eager) and int(fused.iters) > 0
+    s = with_precond(s, s["M_inv"])
+    masked, generic_ = solve_both(s, rtol=1e-10, maxiter=500)
+    assert same(masked, generic_) and int(masked.iters) > 0
 
 
 def test_identity_preconditioner_keeps_r():
     """M_inv = identity makes the prologue's p and r one tensor; the
-    state copies p, so the in-place updates keep them apart."""
-    s = dense_system(seed=5)
-    ident = lambda r: r
-    s["M_inv"] = ident
-    s["ep"] = s["ep"]._replace(dmask=None)
-    fused, eager = solve_both(s, rtol=1e-10, maxiter=500)
-    assert same(fused, eager)
+    steps keep them apart."""
+    s = with_precond(dense_system(seed=5), lambda r: r)
+    masked, generic_ = solve_both(s, rtol=1e-10, maxiter=500)
+    assert same(masked, generic_)
 
 
-# ------------------------------------------------------------ the wrappers
+@pytest.mark.parametrize("pc", ["jacobi", "identity"])
+def test_plain_steps_match_the_jax_pcg(pc):
+    """Both forms of the dense system against the JAX package's pcg with
+    the same operator, preconditioner and weighted dot, in f64, on a
+    spectrum of condition 1e2 (at 1e4 CG runs past n iterations, where
+    the order of summation moves the count): the same iteration count
+    within one and the same iterate to 1e-9, as
+    test_torch_engine.py's generic pcg against the JAX package's."""
+    import jax.numpy as jnp
+    from pynama_tpu.solver.cg import pcg as jax_pcg
+    s = dense_system(seed=6, cond=1e2)
+    if pc == "identity":
+        s = with_precond(s, lambda r: r)
+    K, free, inv = (jnp.asarray(s[k].numpy()) for k in ("K", "free", "inv"))
+    dmask = jnp.asarray(s["system"].precond.numpy()) if pc == "jacobi" \
+        else None
+    want = jax_pcg(lambda v: free * (K @ v), jnp.asarray(s["b"].numpy()),
+                   jnp.asarray(s["x0"].numpy()),
+                   M_inv=None if dmask is None else (lambda r: r / dmask),
+                   rtol=1e-10, maxiter=500,
+                   dot=lambda a, c: jnp.sum(a * c * inv),
+                   A0=lambda v: free * (K @ (free * v)) + (1.0 - free) * v)
+    for res in solve_both(s, rtol=1e-10, maxiter=500):
+        assert abs(int(res.iters) - int(want.iters)) <= 1
+        assert rel(res.x, torch.as_tensor(np.array(want.x))) <= 1e-9
+        assert res.loop_applies >= int(res.iters) > 0
+
+
+@pytest.mark.parametrize("given", ["M_inv", "dot", "A0"])
+def test_masked_system_takes_no_generic_callables(given):
+    s = dense_system()
+    with pytest.raises(TypeError, match="MaskedSystem"):
+        CG.pcg(s["system"], s["b"], s["x0"], **{given: s[given]})
+
+
+# ------------------------------------------------------------ the steps
 def cpu_state(n=40, dtype=torch.float64, dmask=True):
     g = torch.Generator().manual_seed(1)
     v = [torch.rand(n, generator=g, dtype=dtype) + 0.5 for _ in range(6)]
-    ep = E.Epilogue(apply=None, free=v[0], inv_mult=v[1],
-                    dmask=v[2] if dmask else None)
+    system = E.MaskedSystem(apply=None, free=v[0], inv_mult=v[1],
+                            precond=v[2] if dmask else (lambda r: r))
     s = lambda x: torch.tensor(x, dtype=dtype)
-    st = E.CGState(ep, v[3], v[4], v[5], s(2.0), s(3.0), s(1e-8),
+    st = E.CGState(system, v[3], v[4], v[5], s(2.0), s(3.0), s(1e-8),
                    torch.tensor(True), torch.tensor(True),
                    torch.tensor(0), 100)
     return st, v
@@ -267,13 +312,13 @@ def test_steps_raise_on_wrong_input(step, bad):
 def test_state_raises_on_wrong_input(bad):
     n = 16
     f = lambda dt=torch.float64, m=n: torch.ones(m, dtype=dt)
-    vecs = dict(free=f(), inv_mult=f(), dmask=f())
+    vecs = dict(free=f(), inv_mult=f(), precond=f())
     x0, r, z = f(), f(), f()
     if bad == "dtype":
         x0, r, z = f(torch.int64), f(torch.int64), f(torch.int64)
         vecs = {k: f(torch.int64) for k in vecs}
     elif bad == "mixed":
-        vecs["dmask"] = f(torch.float32)
+        vecs["precond"] = f(torch.float32)
     elif bad == "shape":
         vecs["inv_mult"] = f(m=n + 1)
     else:
@@ -282,7 +327,7 @@ def test_state_raises_on_wrong_input(bad):
     s = torch.tensor(1.0, dtype=torch.float64)
     with pytest.raises(TypeError if bad in ("dtype", "mixed")
                        else ValueError):
-        E.CGState(E.Epilogue(apply=None, **vecs), x0, r, z, s, s, s,
+        E.CGState(E.MaskedSystem(apply=None, **vecs), x0, r, z, s, s, s,
                   torch.tensor(True), torch.tensor(True), torch.tensor(0),
                   10)
 
@@ -303,9 +348,29 @@ def test_cpu_steps_count_no_launches():
     assert {k: fn.launches for k, fn in STEPS.items()} == before
 
 
-# --------------------------------------------------- where the engine takes it
-def test_unsharded_engine_runs_fused():
+# ----------------------------------------------------- the route rule
+def record_states(monkeypatch):
+    """Every CGState pcg makes from now on, in a list."""
+    seen, make = [], E.CGState
+
+    def spy(*args, **kw):
+        seen.append(make(*args, **kw))
+        return seen[-1]
+
+    monkeypatch.setattr(E, "CGState", spy)
+    return seen
+
+
+def routes(states):
+    """(fused, kernels, masked) of each state."""
+    return [(st.fused, st.cuda, st.free is not None) for st in states]
+
+
+def test_unsharded_engine_runs_fused(monkeypatch):
+    """A masked system on one rank: "fused", the kernels' route (the plain
+    steps on the CPU)."""
     p = problem(2, 3, 3)
+    states = record_states(monkeypatch)
     tr = tracing()
     try:
         LE.rhs_local(p.engine_ops, 0.0, *state(p))
@@ -313,6 +378,7 @@ def test_unsharded_engine_runs_fused():
         tr.stop()
     solves = [r for r in tr.records() if r.name == "kle.solve"]
     assert [r.attrs["epilogue"] for r in solves] == ["fused", "fused"]
+    assert routes(states) == [(True, False, True)] * 2
 
 
 class FakeComm:
@@ -328,41 +394,38 @@ class FakeComm:
 
 
 def test_sharded_engine_keeps_the_eager_loop(monkeypatch):
+    """A masked system whose dots need a psum: "eager", plain steps."""
     p = problem(2, 3, 3)
     ops = dataclasses.replace(p.engine_ops, comm=FakeComm(), cg_maxiter=9)
     assert LE._sharded(ops)
     spy = Spy()
     monkeypatch.setattr(LE, "pcg", spy)
+    states = record_states(monkeypatch)
     tr = tracing()
     try:
         LE.rhs_local(ops, 0.0, *state(p))
     finally:
         tr.stop()
     assert len(spy.calls) == 2
-    assert all(row["epilogue"] is None for row in spy.calls)
+    assert all(row["system"].reduce == ops.comm.psum for row in spy.calls)
     assert [r.attrs["epilogue"] for r in tr.records()
             if r.name == "kle.solve"] == ["eager", "eager"]
+    assert routes(states) == [(False, False, True)] * 2
 
 
 def test_global_layout_keeps_the_eager_loop(monkeypatch):
+    """A generic system (solver/kle.py): "eager", plain steps."""
     p = problem(2, 3, 3, engine=False)
     assert p.engine_ops is None
-    seen = []
-
-    def spy(*args, **kw):
-        seen.append(kw.get("epilogue"))
-        return CG.pcg(*args, **kw)
-
-    import pynama_tpu_torch.solver.kle as KLE
-    monkeypatch.setattr(KLE, "pcg", spy)
+    states = record_states(monkeypatch)
     tr = tracing()
     try:
         p.rhs(0.0, p.vort, p.vel)
     finally:
         tr.stop()
-    assert seen == [None, None]
     assert [(r.attrs["method"], r.attrs["epilogue"]) for r in tr.records()
             if r.name == "kle.solve"] == [("cg", "eager")] * 2
+    assert routes(states) == [(False, False, False)] * 2
 
 
 def circle_tables(ndev=None):
@@ -380,6 +443,8 @@ def circle_tables(ndev=None):
 
 
 def test_ibm_correction_cgs_keep_the_eager_loop(monkeypatch):
+    """Both IBM correction CGs give pcg generic systems: "eager", plain
+    steps."""
     from pynama_tpu_torch.ibm import interpolation as TI
     from pynama_tpu_torch.ibm.sharded import (build_ibm_shard_tables,
                                               correction_cg_local)
@@ -388,11 +453,13 @@ def test_ibm_correction_cgs_keep_the_eager_loop(monkeypatch):
     seen = []
 
     def spy(*args, **kw):
-        seen.append(kw.get("epilogue"))
-        return pcg(*args, **kw)
+        res = pcg(*args, **kw)
+        seen.append(res.epilogue)
+        return res
 
     pcg = CG.pcg
     monkeypatch.setattr(CG, "pcg", spy)
+    states = record_states(monkeypatch)
     ops, nodes, w, mesh, body = circle_tables()
     rng = np.random.default_rng(3)
     vel = torch.tensor(rng.standard_normal((mesh.n_nodes, 2)))
@@ -408,7 +475,8 @@ def test_ibm_correction_cgs_keep_the_eager_loop(monkeypatch):
         torch.as_tensor(slots[0]), torch.as_tensor(gw[0]),
         torch.as_tensor(sw[0]), scale, vel_l, bv, torch.zeros_like(bv),
         SlabComm("cpu"))
-    assert seen == [None, None] and int(it) > 0 and int(it_l) > 0
+    assert seen == ["eager", "eager"] and int(it) > 0 and int(it_l) > 0
+    assert routes(states) == [(False, False, False)] * 2
 
 
 # ---------------------------------------------------------- cg.fused_share
@@ -491,16 +559,17 @@ def test_fused_share_without_a_tracer():
 
 # -------------------------------------------------------------- on the card
 def random_state(dev, dtype, n, dmask, seed=0):
-    """A CUDA CGState on random vectors (and its constants), run and live
-    true, k = 3."""
+    """A CGState of a masked system on random vectors on dev (and a maker
+    of more), run and live true, k = 3: the same values on every device
+    for a seed."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     r = lambda: (torch.rand(n, generator=g, dtype=torch.float64)
                  + 0.5).to(dtype).to(dev)
     free = (torch.rand(n, generator=g) > 0.05).to(dtype).to(dev)
-    ep = E.Epilogue(apply=None, free=free, inv_mult=r(),
-                    dmask=r() if dmask else None)
+    system = E.MaskedSystem(apply=None, free=free, inv_mult=r(),
+                            precond=r() if dmask else (lambda v: v))
     s = lambda x: torch.tensor(x, dtype=dtype, device=dev)
-    st = E.CGState(ep, r(), r(), r(), s(2.5), s(3.0), s(1e-30),
+    st = E.CGState(system, r(), r(), r(), s(2.5), s(3.0), s(1e-30),
                    torch.tensor(True, device=dev),
                    torch.tensor(True, device=dev),
                    torch.tensor(3, device=dev), 1000)
@@ -508,7 +577,8 @@ def random_state(dev, dtype, n, dmask, seed=0):
 
 
 def rel(a, b):
-    return float((a.double() - b.double()).norm() / b.double().norm())
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / b.norm())
 
 
 @pytest.mark.card
@@ -516,30 +586,29 @@ def rel(a, b):
 @pytest.mark.parametrize("jacobi", [True, False])
 def test_card_kernels_match_plain(card, dtype, jacobi):
     """One iteration's steps at the flagship's vector length (24^3 ngl=4,
-    2,654,208 values, and one value more, for the unpacked tail): vectors
-    and scalars against the plain versions run on copies."""
+    2,654,208 values, and one value more, for the unpacked tail): the
+    kernels' vectors and scalars against the plain steps' on the same
+    values on the CPU."""
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     for n in (13824 * 192, 13824 * 192 + 1):
         st, r = random_state(card, dtype, n, jacobi)
-        ref = {k: getattr(st, k).clone() for k in ("x", "r", "p", "sf", "si")}
+        ref, r_ref = random_state("cpu", dtype, n, jacobi)
+        assert st.cuda and not ref.cuda
         y, zin = r(), r()
-        y_ref = y.clone()
+        y_ref, z_ref = r_ref(), r_ref()
         counts = {k: fn.launches for k, fn in STEPS.items()}
         ap = E.cg_pap(st, y)
         E.cg_xr(st, ap)
-        ap_ref = E.cg_pap_ref(y_ref, ref["p"], st.free, st.inv, ref["sf"],
-                              ref["si"])
-        E.cg_xr_ref(ref["x"], ref["r"], ref["p"], ap_ref, st.inv, ref["sf"],
-                    ref["si"], st.maxiter, st.dmask)
+        ap_ref = E.cg_pap(ref, y_ref)
+        E.cg_xr(ref, ap_ref)
         if jacobi:
             E.cg_p(st)
-            E.cg_p_ref(ref["p"], ref["r"] / st.dmask, ref["sf"])
+            E.cg_p(ref)
         else:
             E.cg_rz(st, zin)
             E.cg_p(st, zin)
-            E.cg_rz_ref(ref["r"], zin, st.inv, ref["sf"], ref["si"],
-                        st.maxiter)
-            E.cg_p_ref(ref["p"], zin, ref["sf"])
+            E.cg_rz(ref, z_ref)
+            E.cg_p(ref, z_ref)
         torch.cuda.synchronize()
         want = {"cg_pap": 1, "cg_xr": 1, "cg_p": 1, "cg_rz": 0 if jacobi
                 else 1}
@@ -547,17 +616,17 @@ def test_card_kernels_match_plain(card, dtype, jacobi):
             == want
         assert rel(ap, ap_ref) <= tol
         for k in ("x", "r", "p"):
-            assert rel(getattr(st, k), ref[k]) <= tol, k
-        assert torch.allclose(st.sf.double(), ref["sf"].double(), rtol=tol,
-                              atol=0), (st.sf, ref["sf"])
-        assert torch.equal(st.si, ref["si"])
-        assert st.si.tolist() == [4, 1, 1]
+            assert rel(getattr(st, k), getattr(ref, k)) <= tol, k
+        sf_ref = torch.stack(ref.sf).double()
+        assert torch.allclose(st.sf.double().cpu(), sf_ref, rtol=tol,
+                              atol=0), (st.sf, sf_ref)
+        assert st.si.tolist() == [int(v) for v in ref.si] == [4, 1, 1]
 
 
 def flagship_spy(card, dtype, pc="jacobi", again=1):
     """One rhs of the 24^3 ngl=4 cavity (the flagship's mesh) on the card
-    from a random state, every CG solve run fused (again more times) and
-    eager."""
+    from a random state, every CG solve run as the engine's masked system
+    (the kernels; again more times) and generically (plain steps)."""
     p = problem(3, 24, 4, device=card, dtype=dtype, cg_rtol=1e-6,
                 cg_maxiter=1000, pc=pc)
     spy = Spy(again=again)
@@ -575,27 +644,27 @@ def flagship_spy(card, dtype, pc="jacobi", again=1):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_card_fused_solve_matches_eager(card, dtype):
     """Both stages of one rhs on the flagship's mesh: iteration counts
-    within 3 % of the eager loop's; the fused iterate as close to the eager
-    one as the eager loop comes to itself when its dot products are only
-    summed in another order (rounding alone), or within 1e-5 (f32) / 1e-12
-    (f64); its true residual no larger; and two fused runs bitwise equal."""
+    within 3 % of the plain steps'; the kernels' iterate as close to the
+    plain steps' as those come to themselves when their dot products are
+    only summed in another order (rounding alone), or within 1e-5 (f32) /
+    1e-12 (f64); its true residual no larger; and two kernel runs bitwise
+    equal."""
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     spy = flagship_spy(card, dtype)
     assert len(spy.calls) == 2
     for row in spy.calls:
-        f, e = row["res"], row["eager"]
-        args, kw = row["args"]
-        inv = kw["epilogue"].inv_mult
+        f, e = row["res"], row["generic"]
+        b, x0, kw = row["args"]
+        g = generic(row["system"])
+        inv = row["system"].inv_mult
 
         def dot(a, c):
             return torch.dot((a * inv).flatten(), c.flatten())
 
-        e2 = CG.pcg(*args, **{**kw, "epilogue": None, "dot": dot,
-                              "dots": lambda ps: [dot(a, c) for a, c in ps]})
-        b, A0 = args[1], kw["A0"]
+        e2 = CG.pcg(b=b, x0=x0, **{**g, "dot": dot}, **kw)
 
         def true_residual(x):
-            r = (b - A0(x)).double()
+            r = (b - g["A0"](x)).double()
             return float((r * r * inv).sum().sqrt())
 
         assert rel(f.x, e.x) <= max(tol, 3 * rel(e2.x, e.x))

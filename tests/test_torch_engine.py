@@ -232,13 +232,13 @@ def test_solve_kle_same_iterates(name, monkeypatch):
     assert _rel(vt.numpy(), vj) <= 1e-12
 
 
-def test_pcg_matches_reference_and_check_interval():
+def test_pcg_matches_reference_and_check_interval(monkeypatch):
     """solver/cg.py against pynama_tpu.solver.cg on a masked SPD system
     (tests/test_cg_loop.py's construction): same solution and iteration
     count; the host-check interval changes neither the iterate nor the
     count, only the applications made after convergence."""
     from pynama_tpu.solver.cg import pcg as jax_pcg
-    from pynama_tpu_torch.solver.cg import pcg
+    from pynama_tpu_torch.solver import cg as CG
     from test_cg_loop import _random_spd
 
     rng = np.random.default_rng(3)
@@ -262,10 +262,13 @@ def test_pcg_matches_reference_and_check_interval():
                                                           * v))
                    + jnp.asarray(con) * v)
     Kt, ft, ct, dt = (torch.as_tensor(a) for a in (K, free, con, d))
-    runs = [pcg(lambda v: ft * (Kt @ v), torch.as_tensor(b),
-                torch.as_tensor(x0), M_inv=lambda r: r / dt, rtol=1e-10,
-                maxiter=500, A0=lambda v: ft * (Kt @ (ft * v)) + ct * v,
-                check_every=c) for c in (1, 8, 16)]
+    runs = []
+    for c in (1, 8, 16):
+        monkeypatch.setattr(CG, "CHECK_EVERY", c)
+        runs.append(CG.pcg(lambda v: ft * (Kt @ v), torch.as_tensor(b),
+                           torch.as_tensor(x0), M_inv=lambda r: r / dt,
+                           rtol=1e-10, maxiter=500,
+                           A0=lambda v: ft * (Kt @ (ft * v)) + ct * v))
     for res in runs:
         assert abs(int(res.iters) - int(want.iters)) <= 1
         assert _rel(res.x.numpy(), want.x) <= 1e-9

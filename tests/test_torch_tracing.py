@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from pynama_tpu_torch.cases import Problem
+from pynama_tpu_torch.solver.cg import CHECK_EVERY
 from pynama_tpu_torch.utils import profiling
 from pynama_tpu_torch.utils.profiling import span, tracing
 
@@ -142,7 +143,6 @@ def test_engine_route_nesting_and_counts(trace):
                    if r.parent == i and r.name == "kle.solve"]
     assert [recs[j].attrs["stage"] for j in solves] == ["fs", "main"] * 2
     assert len(p.cg_log) == len(solves) == 4
-    check_every = 8
     for j, (iters, applies) in zip(solves, p.cg_log):
         a = recs[j].attrs
         assert a["method"] == "cg"
@@ -154,12 +154,12 @@ def test_engine_route_nesting_and_counts(trace):
                              "pcg.check"}
         assert a["epilogue"] == "fused"
         assert kids.count("pcg.apply") == applies + 1
-        # Jacobi: the fused epilogue divides in its kernels, so only the
-        # prologue's z = M_inv(r0) opens a pcg.precond
+        # Jacobi: the steps fold the divide in (cg_xr, cg_p), so only
+        # the prologue's z = M_inv(r0) opens a pcg.precond
         assert kids.count("pcg.precond") == 1
-        # converged: a read at every check_every-th iteration, the last
+        # converged: a read at every CHECK_EVERY-th iteration, the last
         # one finding the loop done
-        assert kids.count("pcg.check") == applies // check_every + 1
+        assert kids.count("pcg.check") == applies // CHECK_EVERY + 1
         assert kids[0] == "pcg.apply" and kids[-1] == "pcg.update"
 
 
