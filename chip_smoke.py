@@ -98,11 +98,20 @@ exits non-zero without the final result line:
             application, cg_rz as often under pc="fdm" and never under
             pc="jacobi"; in
             f64 (CG rtol 1e-10) the velocities agree to 1e-6 and FDM takes
-            fewer iterations on both stages; in f32 (rtol 1e-6) a record:
-            iterations, CUDA-event ms per solve (median of 3), and per call
-            of the FDM apply and of K1 the event ms and, from one call
-            captured in a CUDA graph, its kernel and copy nodes and the
-            device µs of graph replays (`_graph_record`); the FDM apply's
+            fewer iterations on both stages; fdm_apply's kernels
+            (csrc/fdm_apply.cu) launch 3 times per FDM application (one
+            per CG-loop application and one per solve's prologue), and
+            match the eager chain (fdm_apply_ref) on both FDM systems
+            within F64_LIMIT (f64) and F32_LIMIT (f32); in f32
+            (rtol 1e-6) a record: iterations, CUDA-event ms per solve
+            (median of 3), and per call of the FDM apply, of its eager
+            chain (fdm_apply_ref) and of K1 the event ms and, from one call
+            captured in a CUDA graph, its kernel and copy nodes (3 kernels
+            for the FDM apply) and the device µs of graph replays
+            (`_graph_record`); the kernels' and the eager chain's device µs
+            beside their bound (`_fdm_cost`: the bytes the apply needs;
+            the design's scratch-grid traffic apart), on the kernel
+            record; the
             per-mode block step alone, broadcast against einsum; the FDM
             setup seconds
 10. global_direct
@@ -126,7 +135,9 @@ exits non-zero without the final result line:
 12. gmres   the same case, f64 at rtol 1e-10: kle_errors([0.5, 1.0]) with
             the engine's CG and with its GMRES (Jacobi), then one solve
             with GMRES under pc="fdm"; iterations, ms per solve and µs per
-            iteration, K1's launches == expected in each, the errors
+            iteration, K1's launches == expected in each, fdm_apply's
+            kernels 3 per FDM application (each counted GMRES
+            application and one per solve for M_inv b), the errors
             within KLE_AGREE_LIMIT of CG's, relative to the exact
             velocity's norm (or its warm start's, where that is larger)
 13. cli     the command line, pynama_tpu_torch.run_case, in process, each
@@ -303,8 +314,12 @@ and `dss_pass_launches_by_path`: its DSS pass
 launched alone in (d)), then the CG epilogue's four kernels (`launches` in
 the main path's run, `launches_by_path` in phase 9's and 19's solves too,
 the largest relative error against the plain version, and phase 20's
-device µs and HBM bound µs by dtype and preconditioner form), and the
-result line {"ok": true, "device": {...}}.
+device µs and HBM bound µs by dtype and preconditioner form), then the
+FDM apply's kernels (`fdm_apply`: `launches` in phase 9's f32 FDM solve,
+`launches_by_path` in each of phase 9's solves and phase 12's GMRES under
+pc="fdm", the largest relative error against the eager chain, the device
+µs beside the bound µs and the eager chain's device µs), and the result
+line {"ok": true, "device": {...}}.
 A kernel's `bound_ms` is the larger of the
 operations of its function over the card's peak rate for their type and its
 bytes (each input read once, each output written once) over the memory rate,
@@ -721,6 +736,10 @@ EPILOGUE_STEPS = ("cg_pap", "cg_xr", "cg_rz", "cg_p")
 # the CG epilogue's launches by path, counted from 0 around each
 # (_epilogue_check), for the kernel record
 EPILOGUE_BY_PATH = {}
+# the FDM apply's kernel launches by path (fdm_apply.launches, counted
+# from 0 around each), and its kernel record (the fdm phase, f32)
+FDM_LAUNCHES_BY_PATH = {}
+FDM_RECORD = {}
 # chunk lengths of the DSS sweep (0: make_dss_plan's rule)
 DSS_CHUNKS = [0, 2, 3, 4, 6, 8, 12, 24]
 # H100 SXM peaks (NVIDIA's data sheet, dense): HBM3 bytes/s; FLOP/s of FP32
@@ -1864,7 +1883,7 @@ def phase_fdm(torch, dev):
     from pynama_tpu_torch.cases import Problem
     from pynama_tpu_torch.engine.local_engine import curl, solve_kle_local
     from pynama_tpu_torch.ops.fused import fused_apply
-    from pynama_tpu_torch.solver.fdm import fdm_apply
+    from pynama_tpu_torch.solver.fdm import fdm_apply, fdm_apply_ref
 
     cfg = cavity_config((24, 24, 24), 4, 0.5, 0.01, [2, 0, 0], 2, 1.0)
     out = {}
@@ -1887,11 +1906,26 @@ def phase_fdm(torch, dev):
             stats = []
             solve = lambda: solve_kle_local(ops, vort, vel0, 0.0, stats)[1]
             fused_apply.launches = 0
+            fdm_apply.launches = 0
             _epilogue_zero()
             vel = solve()
             launches = fused_apply.launches
             epi = _epilogue_check(f"fdm_{dname}_{pc}",
                                   sum(n for _, n in stats), pc == "fdm")
+            # one FDM apply per CG-loop application and one in each
+            # solve's prologue; three kernel launches each
+            fdm_applies = sum(n + 1 for _, n in stats) if pc == "fdm" else 0
+            check(fdm_apply.launches == 3 * fdm_applies,
+                  f"fdm {dname} {pc}: fdm_apply launched "
+                  f"{fdm_apply.launches} kernels, the solve made "
+                  f"{fdm_applies} FDM applications")
+            FDM_LAUNCHES_BY_PATH[f"fdm_{dname}_{pc}"] = fdm_apply.launches
+            if pc == "fdm" and dtype == torch.float64:
+                FDM_RECORD["f64_max_rel_err"] = err = _fdm_kernel_err(ops, v)
+                FDM_RECORD["f64_limit"] = F64_LIMIT
+                check(err <= F64_LIMIT, f"fdm f64: fdm_apply's kernels "
+                      f"differ from fdm_apply_ref by {err:.3e} > "
+                      f"{F64_LIMIT}")
             # per stage: Rw, apply_K(vc) and the A0 residual; the curl
             # between the stages; plus every CG-loop application
             expected = 4 * len(stats) - 1 + sum(n for _, n in stats)
@@ -1899,7 +1933,9 @@ def phase_fdm(torch, dev):
                        iters_fs_main=[int(it) for it, _ in stats],
                        loop_applies=[n for _, n in stats],
                        fused_apply_launches=launches,
-                       expected_launches=expected, epilogue_launches=epi)
+                       expected_launches=expected, epilogue_launches=epi,
+                       fdm_applies=fdm_applies,
+                       fdm_apply_launches=fdm_apply.launches)
             check(len(stats) == 2 and launches == expected,
                   f"fdm {dname} {pc}: fused_apply launched {launches} "
                   f"times, the solve made {expected} operator applications "
@@ -1920,11 +1956,20 @@ def phase_fdm(torch, dev):
                     f = ops.fdm_fs
                     fa = lambda: fdm_apply(f, r, nelem=ops.nelem,
                                            ngl=ops.ngl)
+                    fr = lambda: fdm_apply_ref(f, r, nelem=ops.nelem,
+                                               ngl=ops.ngl)
                     row["fdm_apply_ms"] = _median_ms(torch, fa)
                     (row["fdm_apply_graph_us"],
                      row["fdm_apply_nodes"]) = _graph_record(torch, fa)
-                    # the per-mode block step alone, as fdm_apply does it
-                    # and as the reference's einsum
+                    check(row["fdm_apply_nodes"] == {"kernel": 3},
+                          f"fdm: one FDM apply captured as "
+                          f"{row['fdm_apply_nodes']}, want 3 kernels")
+                    row["fdm_apply_ref_ms"] = _median_ms(torch, fr)
+                    (row["fdm_apply_ref_graph_us"],
+                     row["fdm_apply_ref_nodes"]) = _graph_record(torch, fr)
+                    FDM_RECORD.update(_fdm_kernel_record(torch, ops, r))
+                    # the per-mode block step alone, as fdm_apply_ref does
+                    # it and as the reference's einsum
                     z = torch.as_tensor(rng.standard_normal(
                         (f.ncomp,) + f.npts), dtype=dtype, device=dev)
                     row["binv_step_graph_us"] = {
@@ -1956,6 +2001,65 @@ def phase_fdm(torch, dev):
         for key in [k for k in out if k[0] == dname]:
             out[key] = (out[key][0], None)
         torch.cuda.empty_cache()
+
+
+def _fdm_cost(f, r):
+    """(operations, bytes, this design's extra bytes) of one FDM apply of f
+    on the element-local r. The operations: the 2·dim axis contractions
+    and the per-mode blocks. The bytes the apply needs: r at its unique
+    nodes, z written at every slot, binv and the Qs read once, jleft where
+    it is not zero (its g0 is r's, already counted). The kernels' design
+    adds the scratch grid written and read twice and, where jleft is not
+    zero, r's unique nodes read again by pass C."""
+    n, c = int(np.prod(f.npts)), f.ncomp
+    eb = r.element_size()
+    jleft = bool(f.jleft.ne(0).any())
+    flops = 2 * sum(2 * c * n * m for m in f.npts) + 2 * c * c * n
+    words = c * n + r.numel() + c * c * n + sum(q.numel() for q in f.Qs) \
+        + (c * n if jleft else 0)
+    extra = 4 * c * n + (c * n if jleft else 0)
+    return flops, words * eb, extra * eb
+
+
+def _fdm_kernel_err(ops, r):
+    """The largest relative max-norm difference of csrc/fdm_apply.cu's
+    kernels from the eager chain (fdm_apply_ref) on both of the engine's
+    FDM systems, on r and on r with its elements reversed (a consistent
+    vector of another box, values that differ per element)."""
+    from pynama_tpu_torch.solver.fdm import fdm_apply, fdm_apply_ref
+    kw = dict(nelem=ops.nelem, ngl=ops.ngl)
+    return max(_rel(fdm_apply(f, x, **kw).cpu().numpy(),
+                    fdm_apply_ref(f, x, **kw).cpu().numpy())
+               for f in (ops.fdm_fs, ops.fdm_main)
+               for x in (r, r.flip(0).contiguous()))
+
+
+def _fdm_kernel_record(torch, ops, r):
+    """csrc/fdm_apply.cu at the flagship's FDM systems: the largest
+    relative error against the eager chain (fdm_apply_ref), checked within
+    F32_LIMIT; the kernels' and the eager chain's device µs, calls rotating
+    among both systems and two inputs, beside the bound of _fdm_cost and
+    the time the design's extra bytes take at HBM speed."""
+    import itertools
+    from pynama_tpu_torch.solver.fdm import fdm_apply, fdm_apply_ref
+    err = _fdm_kernel_err(ops, r)
+    check(err <= F32_LIMIT, f"fdm f32: fdm_apply's kernels differ from "
+          f"fdm_apply_ref by {err:.3e} > {F32_LIMIT}")
+    kw = dict(nelem=ops.nelem, ngl=ops.ngl)
+    rs = [r, r.flip(0).contiguous()]
+    ring = [(f, x) for f in (ops.fdm_fs, ops.fdm_main) for x in rs]
+    nxt = itertools.cycle(ring).__next__
+    us, per = _device_us(torch, lambda: fdm_apply(*nxt(), **kw))
+    plain_us, plain = _device_us(torch, lambda: fdm_apply_ref(*nxt(), **kw))
+    flops, nbytes, extra = _fdm_cost(ops.fdm_fs, r)
+    bound = _f32_bound(flops, nbytes)
+    return dict(max_rel_err=err, limit=F32_LIMIT, device_us=us,
+                device_kernels=per, bound_us=bound[0] * 1e3,
+                bound_by=bound[1], ops_us=flops / PEAK_FLOPS["float32"] * 1e6,
+                bytes_us=nbytes / HBM_BPS * 1e6,
+                design_extra_bytes_us=extra / HBM_BPS * 1e6,
+                roofline_pct=100 * bound[0] * 1e3 / us,
+                plain_device_us=plain_us, plain_kernels=len(plain))
 
 
 def phase_cg_split(torch, p):
@@ -2197,6 +2301,7 @@ def phase_gmres(torch, dev):
     against the applications the solvers report."""
     from pynama_tpu_torch.cases import Problem
     from pynama_tpu_torch.ops.fused import fused_apply
+    from pynama_tpu_torch.solver.fdm import fdm_apply
 
     cfg = tg3d_config((25, 25, 25), 3, 3)
     taus = {"cg": [0.5, 1.0], "gmres": [0.5, 1.0], "gmres_fdm": [0.5]}
@@ -2213,6 +2318,7 @@ def phase_gmres(torch, dev):
         p.cg_log = []
         torch.cuda.synchronize()
         fused_apply.launches = 0
+        fdm_apply.launches = 0
         t0 = time.perf_counter()
         errs = p.kle_errors(taus[name])
         torch.cuda.synchronize()
@@ -2220,6 +2326,15 @@ def phase_gmres(torch, dev):
         k1 = fused_apply.launches
         iters = [int(it) for it, _ in p.cg_log]
         applies = [n for _, n in p.cg_log]
+        # GMRES applies M_inv once per counted application and once to b;
+        # three kernel launches each
+        fdm_applies = sum(n + 1 for n in applies) \
+            if opts.get("pc") == "fdm" else 0
+        if opts.get("pc") == "fdm":
+            FDM_LAUNCHES_BY_PATH[name] = fdm_apply.launches
+        check(fdm_apply.launches == 3 * fdm_applies, f"gmres {name}: "
+              f"fdm_apply launched {fdm_apply.launches} kernels, the solves "
+              f"made {fdm_applies} FDM applications")
         # per solve (free-slip sides only): Rw and apply_K(vc) for b, plus
         # what the solver reports: CG its loop applies and its A0 residual,
         # GMRES every application (residuals included)
@@ -2229,7 +2344,8 @@ def phase_gmres(torch, dev):
             t**2 / (4 * p.nu))[0])) for t in taus[name]]
         out[name] = dict(errors=errs, exact_vel_norms=norms, iters=iters,
                          applies=applies, k1_launches=k1,
-                         k1_expected=expected, seconds=secs,
+                         k1_expected=expected, fdm_applies=fdm_applies,
+                         fdm_apply_launches=fdm_apply.launches, seconds=secs,
                          ms_per_solve=1e3 * secs / len(iters),
                          us_per_iter=1e6 * secs / max(sum(iters), 1))
         if name != "cg":
@@ -4079,6 +4195,16 @@ def _epilogue_rows(record):
         for k in EPILOGUE_STEPS]
 
 
+def _fdm_row():
+    """The FDM apply's kernels in the kernel record: launches by path, the
+    fdm phase's f32 device µs beside the bound and the eager chain's."""
+    return {"name": "fdm_apply", "route": "cuda",
+            "source": "pynama_tpu_torch/csrc/fdm_apply.cu",
+            "replaces": "pynama_tpu/solver/fdm.py fdm_apply (jnp)",
+            "launches": FDM_LAUNCHES_BY_PATH.get("fdm_float32_fdm"),
+            "launches_by_path": dict(FDM_LAUNCHES_BY_PATH), **FDM_RECORD}
+
+
 def phase_cg_epilogue(torch, dev):
     """The fused CG epilogue (ops/cg_epilogue.py) at the flagship's local
     velocity length (24^3 ngl=4: 2,654,208 values), f32 and f64: one
@@ -4221,7 +4347,8 @@ def main() -> int:
         **{k: r[k] for k in ("gemm3x_device_us", "gemm3x_bound_us",
                              "launches_by_path", "dss_pass_launches_by_path")
            if k in r}}
-        for name, src, replaces, r in kernels] + _epilogue_rows(epilogue)}))
+        for name, src, replaces, r in kernels] + _epilogue_rows(epilogue)
+        + [_fdm_row()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

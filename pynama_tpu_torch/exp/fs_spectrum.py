@@ -19,7 +19,8 @@ a card, float64 by default), and table the effective condition number
 after dropping the k lowest modes with the matching predicted CG count
   iters(k) ~ 0.5 * sqrt(kappa_k) * ln(2/rtol),  rtol = 1e-6.
 
-The dense FDM inverse applies the port's `solver/fdm.py::fdm_apply` to
+The dense FDM inverse applies the port's `solver/fdm.py::fdm_apply_ref`
+(the plain version, which vmaps; the kernels take one vector a launch) to
 identity columns, `batch` at a time through `torch.func.vmap`. The FDM-
 preconditioned operator Sq^T A Sq is symmetrized (0.5 (P + P^T)) before
 its eigenvalues are taken, as the inverse Mi is: the two products leave it
@@ -42,7 +43,7 @@ import torch
 from pynama_tpu_torch.cases import Problem
 from pynama_tpu_torch.exp import analysis_main
 from pynama_tpu_torch.ops import local as L
-from pynama_tpu_torch.solver.fdm import build_fdm, fdm_apply
+from pynama_tpu_torch.solver.fdm import build_fdm, fdm_apply_ref
 
 #: the k-drop table's k values and the census fractions of the median
 KS = (0, 4, 8, 16, 32, 64, 128, 256, 512)
@@ -98,8 +99,8 @@ def assemble_global_K(p) -> np.ndarray:
 
 def fdm_minv_dense(p, free, batch: int = 256):
     """Dense FDM preconditioner inverse on global dofs, (n, n) on p's
-    device in p's dtype, via fdm_apply on identity columns; None when the
-    mask has no tensor structure."""
+    device in p's dtype, via fdm_apply_ref on identity columns; None when
+    the mask has no tensor structure."""
     mesh = p.mesh
     dim = mesh.dim
     # assembled diagonal for the jleft fallback
@@ -119,7 +120,7 @@ def fdm_minv_dense(p, free, batch: int = 256):
     rep = idx(np.asarray(mesh.incidence)[:, 0])   # a slot of every node
     nelem, ngl = tuple(mesh.nelem), mesh.ngl
     apply_v = torch.func.vmap(
-        lambda r: fdm_apply(f, r, nelem=nelem, ngl=ngl))
+        lambda r: fdm_apply_ref(f, r, nelem=nelem, ngl=ngl))
     out = torch.empty((n, n), dtype=p.dtype, device=p.device)
     for s in range(0, n, batch):
         b = min(batch, n - s)

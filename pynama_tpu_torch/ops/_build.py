@@ -71,9 +71,11 @@ _DSS = [_VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _VP]
 # ngl, ncomp, dim, ne0, ne1, ne2, elem_bytes, chunk, out (int[5]); launches
 # nothing
 _DSS_PLAN = [_I32] * 8 + [ctypes.POINTER(_I32)]
-# the address of a kernel's argument block (ArgBlock; ops/cg_epilogue.py and
-# ops/sumfact.py _Args)
+# the address of a kernel's argument block (ArgBlock; ops/cg_epilogue.py,
+# ops/sumfact.py and solver/fdm.py _Args)
 _BLOCK = [_VP]
+# an argument block (solver/fdm.py _Args), out (int[9]); launches nothing
+_FDM_PLAN = [_VP, ctypes.POINTER(_I32)]
 SIGNATURES = {
     "pn_fused_apply_f32": _FUSED, "pn_fused_apply_f64": _FUSED,
     "pn_plainmm_f32": _PLAINMM, "pn_plainmm_f64": _PLAINMM,
@@ -84,7 +86,8 @@ SIGNATURES = {
     "pn_dss_f32": _DSS, "pn_dss_f64": _DSS, "pn_dss_plan": _DSS_PLAN,
     "pn_cg_pap": _BLOCK, "pn_cg_xr": _BLOCK, "pn_cg_rz": _BLOCK,
     "pn_cg_p": _BLOCK,
-    "pn_sumfact_apply": _BLOCK,
+    "pn_sumfact_apply": _BLOCK, "pn_fdm_apply": _BLOCK,
+    "pn_fdm_plan": _FDM_PLAN,
 }
 
 

@@ -24,11 +24,22 @@ a tensor product of per-axis 1D masks (every whole-wall configuration);
 otherwise the largest contained tensor mask is used and the few leftover
 free dofs get Jacobi.
 
-Setup (`build_fdm`) is host numpy float64, as in the reference; the apply
-(`fdm_apply`) is torch on the engine's device: 2·dim batched matmuls
-(full float32 under the precision pins of `config.py`, never TF32), the
-per-mode (c, c) blocks as a broadcast multiply and sum, and the
-grid<->local reshapes and copies.
+Setup (`build_fdm`) is host numpy float64, as in the reference. The apply
+(`fdm_apply`) has two routes:
+
+- on a CUDA tensor with the box layout (`nelem`, `ngl` given), three
+  launches of the hand-written kernels of `csrc/fdm_apply.cu` (built into
+  the kernels' library by `ops/_build.py`): a forward plane pass (Q2ᵀ,
+  Q1ᵀ of each axis-0 plane, read straight from the element-local vector),
+  a pencil pass (Q0ᵀ, the per-mode (c, c) block, Q0 along axis 0, in
+  place) and a backward plane pass (Q1, Q2, the Jacobi leftover term,
+  written to every slot of each node), through one scratch grid; a shape
+  they do not take raises, there is no fallback;
+- otherwise the plain PyTorch version `fdm_apply_ref`: 2·dim batched
+  matmuls (full float32 under the precision pins of `config.py`, never
+  TF32), the per-mode (c, c) blocks as a broadcast multiply and sum, and
+  the grid<->local reshapes and copies; the gather path (no `nelem`) on
+  any device.
 
 The slab form for sharded runs (`SlabFDM`, `shard_fdm`, `_contract_axis`,
 `fdm_apply_slab`): on one rank's axis-0 slab the local axes 1..d-1
@@ -39,9 +50,11 @@ replicated modes with no communication.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import logging
+import weakref
 
 import numpy as np
 import torch
@@ -267,7 +280,9 @@ def build_fdm(mesh, free_mask_np: np.ndarray, *, device, dtype,
     Binv = np.einsum("nck,nk,ndk->ncd", V, 1.0 / lam_b, V)
     binv = np.moveaxis(Binv, 0, -1).reshape((dim, dim) + npts)
 
-    f = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    # contiguous, as the kernels of fdm_apply read them
+    f = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                  device=device)
     return FDMOps(
         Qs=tuple(f(q) for q in Qs), binv=f(binv),
         rep_rows=np.asarray(mesh.incidence)[:, 0].astype(np.int64),
@@ -350,10 +365,13 @@ def _transform_chain(Qs, z: torch.Tensor, transpose_q: bool) -> torch.Tensor:
     return z
 
 
-def fdm_apply(f: FDMOps, r_loc: torch.Tensor, nelem: tuple | None = None,
-              ngl: int | None = None) -> torch.Tensor:
-    """z = S⁻¹ r on a consistent element-local vector (E, nn*ncomp); the
-    result is consistent (global values duplicated into every slot).
+def fdm_apply_ref(f: FDMOps, r_loc: torch.Tensor,
+                  nelem: tuple | None = None,
+                  ngl: int | None = None) -> torch.Tensor:
+    """The plain PyTorch version of `fdm_apply` (its route on the CPU and
+    on the gather path): z = S⁻¹ r on a consistent element-local vector
+    (E, nn*ncomp); the result is consistent (global values duplicated into
+    every slot).
 
     With (nelem, ngl) given the grid<->local conversions are strided
     slices (the engine's path); otherwise they are index gathers through
@@ -381,6 +399,152 @@ def fdm_apply(f: FDMOps, r_loc: torch.Tensor, nelem: tuple | None = None,
     nodes = torch.as_tensor(f.cell_nodes, device=r_loc.device)
     out = z.reshape(-1, c)[nodes]                   # (E, nn, c)
     return out.reshape(E, nnc)
+
+
+# ------------------------------------------------------------- the kernels
+class _Args(ctypes.Structure):
+    """csrc/fdm_apply.cu's Args, field for field."""
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "r", "out", "g", "q0", "q1", "q2", "binv", "jleft", "stream")] + [
+        ("f64", ctypes.c_int), ("c", ctypes.c_int),
+        ("np", ctypes.c_int * 3), ("ne", ctypes.c_int * 3),
+        ("nl", ctypes.c_int * 3), ("pad", ctypes.c_int)]
+
+
+#: kernel_plan's keys, in pn_fdm_plan's order
+PLAN_KEYS = ("wa", "ka", "pb", "kb", "ec", "kc", "smem_a", "smem_b",
+             "smem_c")
+
+
+def kernel_plan(np3: tuple, ne3: tuple, nl3: tuple, c: int,
+                esize: int) -> dict:
+    """The tiles csrc/fdm_apply.cu's make_plan picks for a box of ne3
+    elements of nl3 nodes per axis, np3 = (np0, np1, np2) grid nodes (axis
+    1 one node wide in 2D), c components of esize bytes (needs nvcc;
+    launches nothing): pass A's axis-2 modes and k-chunk a CTA (wa, ka),
+    pass B's pencils and k-chunk (pb, kb), pass C's elements along axis 2
+    and k-chunk (ec, kc), and each pass's shared memory in bytes. Raise
+    where the kernels do not take the box."""
+    from pynama_tpu_torch.ops._build import load_library
+    a = _Args(f64=int(esize == 8), c=c)
+    a.np[:], a.ne[:], a.nl[:] = np3, ne3, nl3
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    if load_library().pn_fdm_plan(ctypes.addressof(a), out) != 0:
+        raise ValueError(f"fdm_apply's kernels: no plan for the box {np3} "
+                         f"of {c} components of {esize} bytes")
+    return dict(zip(PLAN_KEYS, out))
+
+
+def box3(f: FDMOps, nelem: tuple, ngl: int):
+    """The kernels' 3D box of f's grid: (np, ne, nl) per axis, axis 1 one
+    node wide in 2D; raise unless nelem and ngl give f's npts."""
+    nelem = tuple(int(n) for n in nelem)
+    if len(nelem) != len(f.npts) or f.npts != tuple(
+            n * (ngl - 1) + 1 for n in nelem):
+        raise ValueError(f"fdm_apply: nelem {nelem}, ngl {ngl} do not give "
+                         f"the FDMOps' npts {f.npts}")
+    if len(nelem) == 3:
+        return f.npts, nelem, (ngl,) * 3
+    return ((f.npts[0], 1, f.npts[1]), (nelem[0], 1, nelem[1]),
+            (ngl, 1, ngl))
+
+
+def check_input(f: FDMOps, r_loc: torch.Tensor, nelem: tuple,
+                ngl: int) -> None:
+    """Raise unless r_loc is a contiguous (E, ngl^dim·c) tensor of f's
+    dtype on f's device, for the box (nelem, ngl) of f's grid."""
+    if not isinstance(r_loc, torch.Tensor):
+        raise TypeError("fdm_apply takes a torch tensor")
+    if r_loc.dtype != f.binv.dtype:
+        raise TypeError(f"fdm_apply: r is {r_loc.dtype}, the FDMOps "
+                        f"{f.binv.dtype}")
+    if r_loc.device != f.binv.device:
+        raise ValueError(f"fdm_apply: r on {r_loc.device}, the FDMOps on "
+                         f"{f.binv.device}")
+    box3(f, nelem, ngl)
+    shape = (int(np.prod(nelem)), ngl ** len(nelem) * f.ncomp)
+    if tuple(r_loc.shape) != shape or not r_loc.is_contiguous():
+        raise ValueError(f"fdm_apply: r must be a contiguous {shape} "
+                         f"tensor, got {tuple(r_loc.shape)}"
+                         f"{'' if r_loc.is_contiguous() else ' (strided)'}")
+
+
+#: the kernels' argument block of each FDMOps that has run on a card, by
+#: id: ((nelem, ngl) it was bound for, the block, r's shape, the scratch
+#: grid's length); bound at its first CUDA call and dropped when the
+#: FDMOps is collected
+_BLOCKS = {}
+
+
+def _bind(f: FDMOps, nelem: tuple, ngl: int):
+    """The _BLOCKS entry of f's apply on the box (nelem, ngl)."""
+    from pynama_tpu_torch.ops._build import ArgBlock
+    dt = f.binv.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"fdm_apply's kernels take float32 or float64, not "
+                        f"{dt}")
+    if not 2 <= f.ncomp <= 3:
+        raise ValueError(f"fdm_apply's kernels take 2 or 3 components, not "
+                         f"{f.ncomp}")
+    np3, ne3, nl3 = box3(f, nelem, ngl)
+    for name, a in [("binv", f.binv), ("jleft", f.jleft)] + [
+            (f"Qs[{d}]", q) for d, q in enumerate(f.Qs)]:
+        if a.dtype != dt or a.device != f.binv.device \
+                or not a.is_contiguous():
+            raise ValueError(f"FDMOps.{name}: a contiguous {dt} tensor on "
+                             f"{f.binv.device}")
+    # in 2D axis 1 is one node wide, its eigenbasis [1]
+    q0, q1, q2 = (f.Qs[0], f.Qs[1], f.Qs[2]) if len(f.Qs) == 3 \
+        else (f.Qs[0], torch.ones((f.ncomp, 1, 1), dtype=dt,
+                                  device=f.binv.device), f.Qs[1])
+    kernel_plan(np3, ne3, nl3, f.ncomp, f.binv.element_size())  # raises
+    a = _Args(q0=q0.data_ptr(), q1=q1.data_ptr(), q2=q2.data_ptr(),
+              binv=f.binv.data_ptr(),
+              jleft=f.jleft.data_ptr() if bool(f.jleft.ne(0).any())
+              else None,
+              f64=int(dt == torch.float64), c=f.ncomp)
+    a.np[:], a.ne[:], a.nl[:] = np3, ne3, nl3
+    block = ArgBlock(a, f.binv.device, "pn_fdm_apply")
+    block.q1 = q1                   # the block holds its address
+    shape = torch.Size((int(np.prod(nelem)), ngl ** len(nelem) * f.ncomp))
+    entry = _BLOCKS[id(f)] = ((tuple(nelem), ngl), block, shape,
+                              f.ncomp * int(np.prod(f.npts)))
+    weakref.finalize(f, _BLOCKS.pop, id(f), None)
+    return entry
+
+
+def fdm_apply(f: FDMOps, r_loc: torch.Tensor, nelem: tuple | None = None,
+              ngl: int | None = None) -> torch.Tensor:
+    """z = S⁻¹ r on a consistent element-local vector (E, nn*ncomp); the
+    result is consistent (global values duplicated into every slot).
+
+    On a CUDA tensor with (nelem, ngl) given: three launches of
+    csrc/fdm_apply.cu on the current stream, through a scratch grid taken
+    from the caching allocator per call; r_loc must be a contiguous tensor
+    of f's dtype and device. Otherwise `fdm_apply_ref`."""
+    if nelem is None or r_loc.device.type != "cuda":
+        return fdm_apply_ref(f, r_loc, nelem, ngl)
+    entry = _BLOCKS.get(id(f))
+    if entry is None or entry[0] != (tuple(nelem), ngl):
+        check_input(f, r_loc, nelem, ngl)
+        entry = _bind(f, nelem, ngl)
+    _, block, shape, ngrid = entry
+    if r_loc.shape != shape or r_loc.dtype != f.binv.dtype \
+            or r_loc.device != f.binv.device or not r_loc.is_contiguous():
+        check_input(f, r_loc, nelem, ngl)           # raises: the reason
+    out = torch.empty_like(r_loc)
+    g = torch.empty(ngrid, dtype=r_loc.dtype, device=r_loc.device)
+    a = block.args
+    a.r, a.out, a.g = r_loc.data_ptr(), out.data_ptr(), g.data_ptr()
+    # this call's stream: a CUDA graph capture runs on a stream of its own
+    a.stream = torch.cuda.current_stream(r_loc.device).cuda_stream
+    block.launch("pn_fdm_apply")
+    fdm_apply.launches += 3
+    return out
+
+
+#: kernel launches of this process (CPU calls do not count)
+fdm_apply.launches = 0
 
 
 # ------------------------------------------------------------- slab form
