@@ -41,6 +41,7 @@ from pynama_tpu_torch.ibm import interpolation as I
 from pynama_tpu_torch.ibm.bodies import BodiesContainer
 from pynama_tpu_torch.solver.timestep import AdaptiveStepper
 from pynama_tpu_torch.utils import Timer
+from pynama_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger("pynama_tpu_torch.ibm")
 
@@ -149,9 +150,10 @@ class ImmersedBoundaryStatic(Problem):
         # immersed_boundary.py:131-141) — through _per_step_correction:
         # the reference's dynamic override updates the body kinematics at
         # t0 there too (immersed_boundary.py:366-368 called from :140)
+        self._start_correction()
         t = self.start_time
         vort, vel = self.solve_kle(self.vort, self.vel, t)
-        vel, flux = self._per_step_correction(vel, t)
+        vel, flux = self._correct(vel, t)
         vort = self.operator.curl(vel)
 
         hist = {"times": [], "cd": [], "cl": [], "dt": [], "steps": [],
@@ -164,7 +166,7 @@ class ImmersedBoundaryStatic(Problem):
             step += 1
             vort, vel = self.solve_kle(vort, vel, t)
             vel_pre = vel
-            vel, flux = self._per_step_correction(vel, t)
+            vel, flux = self._correct(vel, t)
             vort = self.operator.curl(vel)
             dt = stepper.dt
             logger.info("Converged: Step %4d | Time %.4e | DT: %.4e",
@@ -202,6 +204,18 @@ class ImmersedBoundaryStatic(Problem):
         self.vort, self.vel = vort, vel
         self.history = hist
         return t, step
+
+    def _correct(self, vel, t):
+        """The loop's velocity correction at t, an `ibm.correct` span
+        (attrs L, the Lagrangian points, and moving)."""
+        with span("ibm.correct") as s:
+            s.attrs["L"] = self.body.n_nodes
+            s.attrs["moving"] = self.body.is_moving
+            return self._per_step_correction(vel, t)
+
+    def _start_correction(self):
+        """Reset what one march of the loop carries from correction to
+        correction (nothing for a fixed body)."""
 
     def _per_step_correction(self, vel, t):
         return self.velocity_correction(vel, t)
@@ -324,28 +338,38 @@ class ImmersedBoundaryDynamic(ImmersedBoundaryStatic):
 
     The inherited public `velocity_correction` (Cholesky on `self.chol`)
     reflects the body at t0; the per-step path is `_per_step_correction`.
-    `corr_log` gets (CG iterations, relative residual) per correction;
-    `_save_step` refreshes the visualization tables to the current
-    position."""
+    `corr_log` gets (CG iterations, relative residual) per correction of
+    the last march; `_save_step` refreshes the visualization tables to the
+    current position.
+
+    Every march (`start_solver`) starts its correction CG from a zero
+    flux and an empty `corr_log`, so two marches from the same state take
+    the same steps and give the same fields."""
 
     def setUp(self):
         super().setUp()
-        self._flux = torch.zeros((self.body.n_nodes, self.dim),
-                                 dtype=self.dtype, device=self.device)
         self._corr_rtol = 1e-12 if self.dtype == torch.float64 else 1e-7
         self._xy = None
+        self._start_correction()
+
+    def _start_correction(self):
+        self._flux = torch.zeros((self.body.n_nodes, self.dim),
+                                 dtype=self.dtype, device=self.device)
         self.corr_log = []
 
     def _per_step_correction(self, vel, t):
         self.body.update_parameters(t)           # host O(L) kinematics only
-        xy = self._field(self.body.coordinates())
+        with span("ibm.tables") as s:
+            xy = self._field(self.body.coordinates())
+            body_vel = self._field(self.body.velocities())
+            nodes, w = I.support_tables(self.ibm_ops, xy)
+            plan = I.spread_plan(nodes)
+            s.attrs["L"], s.attrs["K"] = nodes.shape
         self._xy = xy                             # for _save_step refresh
-        body_vel = self._field(self.body.velocities())
         vel = self._field(vel)
-        nodes, w = I.support_tables(self.ibm_ops, xy)
         corr, flux, (iters, relres) = I.correction_cg(
             self.ibm_ops, nodes, w, vel, body_vel, self._flux,
-            n_nodes=self.mesh.n_nodes, rtol=self._corr_rtol)
+            n_nodes=self.mesh.n_nodes, rtol=self._corr_rtol, plan=plan)
         self._flux = flux
         iters, relres = int(iters), float(relres)
         self.corr_log.append((iters, relres))

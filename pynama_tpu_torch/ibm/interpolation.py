@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from pynama_tpu_torch.ibm.bodies import KERNELS, KERNEL_SUPPORT
+from pynama_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,8 +218,11 @@ def correction_cg(ops: IBMOps, nodes, w, vel_nodal, body_vel, flux0,
 
     d = ((w * w).sum(dim=1) * ops.h * ops.dl)[:, None]
     rhs = body_vel - interp_H(ops, nodes, w, vel_nodal)
-    res = pcg(A, rhs, flux0, M_inv=lambda r: r / d, rtol=rtol,
-              maxiter=maxiter)
+    with span("ibm.cg") as s:
+        res = pcg(A, rhs, flux0, M_inv=lambda r: r / d, rtol=rtol,
+                  maxiter=maxiter)
+        s.attrs["iters"] = res.iters
+        s.attrs["loop_applies"] = res.loop_applies
     corr = spread_S(ops, nodes, w, res.x, n_nodes, plan)
     relres = res.residual / (torch.sqrt((rhs * rhs).sum()) + 1e-300)
     return corr, res.x, (res.iters, relres)
